@@ -1,12 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — a style-1 job of strip-ROI pairs with
-``random_points`` output through ``run_job_batched`` — at the full width the
-product uses (2 strips x 16 pairs = 32 images of 256x1024, reference solver
-defaults), and holds the hand-written level kernel against its plain PyTorch
-version on the card. Needs no file from outside the repository and no
-network: frames are synthesised from a seed.
+Drives the port's main paths at the full width the product uses, reference
+solver defaults, and holds every hand-written kernel against its plain
+PyTorch version on the card:
+
+- a style-1 job of strip-ROI pairs with ``random_points`` output through
+  ``run_job_batched`` (2 strips x 16 pairs = 32 images of 256x1024): the
+  level kernel;
+- full-section solves and style-1 ``map`` / ``flow`` jobs of 512x1024 frames
+  (1024x2048 sections at scale 0.5): the blocked level kernel at the levels
+  above the fused budget;
+- the per-level API, ``tvl1_flow(level_solver=default_level_solver(...))``:
+  the chunk kernel.
+
+Needs no file from outside the repository and no network: frames are
+synthesised from a seed.
 
     python3 chip_smoke.py            # every phase, as the acceptance run
     python3 chip_smoke.py --phases device,build,kernels   # a subset
@@ -14,13 +23,20 @@ network: frames are synthesised from a seed.
 Phases, one JSON line each; any failure ends the run with a non-zero code:
 
   device   a CUDA device must be present (never carries on on the CPU)
-  build    compile/load the kernel library from optflow_tpu_torch/csrc
-  kernels  kernel against plain version on the card, with tolerances
+  build    compile (one nvcc per source, together) and load the three
+           kernel libraries from optflow_tpu_torch/csrc
+  kernels  each kernel against its plain version on the card, with
+           tolerances; the blocked kernel also against the level kernel
   solve    tvl1_flow_batched at (16, 256, 1024), both EPE gates; then a
            `levels` line: per-level kernel times of a 32-image solve
   job      64 pairs through run_job_batched, match gate, launch count
   cli      the same job (16 pairs) from PNG files through the CLI, when an
            image library (cv2 or PIL) is installed; else a printed skip
+  section  tvl1_flow_batched at (4, 512, 1024) and (1, 1024, 1024) with a
+           line naming the kernel that solved each level; then a `map` job
+           of 8 full-section pairs and a `flow` job of 2 through
+           run_job_batched, TIFFs written, read back and gated
+  level_api  tvl1_flow with the chunk-kernel level solver at 512x1024
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 every kernel's launches on the main path, its error against the plain
@@ -45,7 +61,8 @@ import time
 
 import numpy as np
 
-ALL_PHASES = ("device", "build", "kernels", "solve", "job", "cli")
+ALL_PHASES = ("device", "build", "kernels", "solve", "job", "cli", "section",
+              "level_api")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 rate outside the tensor cores
@@ -87,8 +104,22 @@ WARP_FLOPS_PER_PX = 2 + 4 + 4 + 2 + 22 + 4 + 30 + 5  # = 73
 # The gradient: 0.5*(r - l) and 0.5*(d - u)
 GRAD_FLOPS_PER_PX = 4
 
-KERNEL_SOURCE = "optflow_tpu_torch/csrc/tvl1_level.cu"
-KERNEL_REPLACES = "optflow_tpu/ops/tvl1_pallas.py:226"
+# every kernel of the port: its source, and the body of the TPU kernel it
+# replaces
+KERNELS = {
+    "tvl1_level_solve": {
+        "source": "optflow_tpu_torch/csrc/tvl1_level.cu",
+        "replaces": "optflow_tpu/ops/tvl1_pallas.py:226",
+    },
+    "tvl1_blocked_level_solve": {
+        "source": "optflow_tpu_torch/csrc/tvl1_blocked.cu",
+        "replaces": "optflow_tpu/ops/tvl1_pallas.py:777",
+    },
+    "tvl1_chunk": {
+        "source": "optflow_tpu_torch/csrc/tvl1_chunk.cu",
+        "replaces": "optflow_tpu/ops/tvl1_pallas.py:1250",
+    },
+}
 
 # solve phase: the JAX bench's pair generator and truth
 SOLVE_H, SOLVE_W, SOLVE_BATCH = 256, 1024, 16
@@ -98,6 +129,9 @@ DX, DY = 2.0, -1.25
 SRC_H, SRC_W = 1024, 2048
 SCALE = 0.5
 STRIP = 256
+SECTION_H, SECTION_W = int(SRC_H * SCALE), int(SRC_W * SCALE)  # 512 x 1024
+# section phase: the two full-section solves, (batch, height, width)
+SECTION_SOLVES = ((4, SECTION_H, SECTION_W), (1, 1024, 1024))
 DX_STEP, DY_STEP = 2.2, -1.2  # per z step, full-res px
 MAX_DZ = 3
 
@@ -162,6 +196,30 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_busy_ms(fn):
+    """Milliseconds the card spent inside kernels during ``fn()``: the sum of
+    every kernel's duration from a torch.profiler trace of the device. Set
+    beside the untraced time of the same work it says how much of that time
+    the card was idle. Returns (ms or None, note): None when the profiler
+    cannot trace this machine's card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total_us = sum(
+            getattr(e, "self_device_time_total", 0.0)
+            for e in prof.key_averages()
+        )
+    except RuntimeError as e:  # the tracer, not the port: report, go on
+        return None, f"torch.profiler failed: {e}"
+    if total_us <= 0:
+        return None, "torch.profiler recorded no device time"
+    return total_us / 1e3, "sum of kernel durations, torch.profiler"
+
+
 def level_bound_ms(n, h, w, warps, total_iters):
     """Least time the card could take for one level solve: the larger of
     (inputs i0, i1, u1, u2 read once + outputs u1, u2 written once) over the
@@ -177,6 +235,45 @@ def level_bound_ms(n, h, w, warps, total_iters):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chunk_bound_ms(n, h, w, blocks, total_iters):
+    """Least time the card could take for one chunk call: ro (3 planes) and
+    the state (6) read once, the new state (6) and the errors written once,
+    over the memory rate; or the iterations these images ran (``total_iters``
+    = their sum over the images) over the float32 rate."""
+    px = h * w
+    bytes_moved = 15 * 4 * n * px + 4 * n * blocks
+    flops = ITER_FLOPS_PER_PX * px * total_iters
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_wrappers():
+    """name -> wrapper, for the launch counts."""
+    from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
+        tvl1_blocked_level_solve,
+    )
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import tvl1_chunk
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
+
+    return {"tvl1_level_solve": tvl1_level_solve,
+            "tvl1_blocked_level_solve": tvl1_blocked_level_solve,
+            "tvl1_chunk": tvl1_chunk}
+
+
+def zero_launch_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launch_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def max_abs_diff(a, b):
+    return float((a - b).abs().max())
 
 
 # --------------------------------------------------------------------------
@@ -206,22 +303,44 @@ def gpu_name_and_limit() -> str:
 
 
 def phase_build():
-    from optflow_tpu_torch.ops import _build, tvl1_cuda
+    from optflow_tpu_torch.ops import (
+        _build,
+        tvl1_blocked_cuda,
+        tvl1_chunk_cuda,
+        tvl1_cuda,
+    )
 
+    stems = ("tvl1_level", "tvl1_blocked", "tvl1_chunk")
     t0 = time.perf_counter()
-    tvl1_cuda._library()
+    _build.build_libraries(stems)  # one nvcc per source, started together
+    for mod in (tvl1_cuda, tvl1_blocked_cuda, tvl1_chunk_cuda):
+        mod._library()
     secs = time.perf_counter() - t0
-    path = _build.library_path("tvl1_level")
-    log = path.with_suffix(".log")
-    emit({"phase": "build", "library": str(path.relative_to(os.getcwd()))
-          if str(path).startswith(os.getcwd()) else str(path),
-          "seconds": round(secs, 3),
-          "compiled": "tvl1_level" in _build.build_seconds,
-          "ptxas": log.read_text().strip().splitlines()[-12:]
-          if log.exists() else []})
+    libs = {}
+    for stem in stems:
+        path = _build.library_path(stem)
+        log = path.with_suffix(".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        libs[stem] = {
+            "library": os.path.relpath(path, os.getcwd()),
+            "compiled": stem in _build.build_seconds,
+            # registers, shared memory and spills of every kernel
+            "ptxas": [ln.strip() for ln in lines
+                      if "registers" in ln or "spill" in ln][-16:],
+        }
+    emit({"phase": "build", "seconds": round(secs, 3), "libraries": libs})
 
 
 def phase_kernels(results):
+    results["kernel_cases"] = {
+        "tvl1_level_solve": kernels_level(),
+        "tvl1_blocked_level_solve": kernels_blocked(),
+        "tvl1_chunk": kernels_chunk(),
+    }
+
+
+def kernels_level():
+    """The level kernel (csrc/tvl1_level.cu) against its plain version."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
@@ -292,14 +411,7 @@ def phase_kernels(results):
     # mean end-point error.
     full = TVL1Params(nscales=1)
     n, h, w = 4, 256, 1024
-    shifts = (0.4, 0.8, 1.2, 1.6)
-    parts = [make_level_inputs(1, h, w, seed=100 + k, shift=s, flow_amp=0.0)
-             for k, s in enumerate(shifts)]
-    i0, i1, u1, u2 = (
-        torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(*parts)
-    )
-    u1 = torch.zeros_like(u1)
-    u2 = torch.zeros_like(u2)
+    i0, i1, u1, u2, truth_x = eps_exit_inputs(dev, h, w)
     k1, k2, kit = tvl1_level_solve(i0, i1, u1, u2, full)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -310,7 +422,6 @@ def phase_kernels(results):
     p1, p2, pit = tvl1_level_solve_plain(i0, i1, u1, u2, full)
     torch.cuda.synchronize()
     eps_plain_ms = (time.perf_counter() - t0) * 1e3
-    truth_x = torch.tensor(shifts, device=dev)[:, None, None]
     truth_y = -0.6 * truth_x
 
     def epe(a, b):
@@ -335,7 +446,265 @@ def phase_kernels(results):
         fail(f"images were expected to stop at different counts: {kit_l}")
     if not abs(epe_k - epe_p) <= 0.01:
         fail(f"EPE of kernel {epe_k} and plain version {epe_p} differ")
-    results["kernel_case"] = main_case
+    return main_case
+
+
+def eps_exit_inputs(dev, h, w):
+    """Four images that meet the epsilon exit at different iterations: shifts
+    of 0.4 to 1.6 px, zero entry flow. Returns (i0, i1, u1, u2, truth_x)."""
+    import torch
+
+    shifts = (0.4, 0.8, 1.2, 1.6)
+    parts = [make_level_inputs(1, h, w, seed=100 + k, shift=s, flow_amp=0.0)
+             for k, s in enumerate(shifts)]
+    i0, i1, u1, u2 = (
+        torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(*parts)
+    )
+    truth_x = torch.tensor(shifts, device=dev)[:, None, None]
+    return i0, i1, torch.zeros_like(u1), torch.zeros_like(u2), truth_x
+
+
+def kernels_blocked():
+    """The blocked level kernel (csrc/tvl1_blocked.cu) against its plain
+    version and against the level kernel, at a full section's finest level
+    and at a level only 2-D tiling can take."""
+    import torch
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
+        BLOCKED_K,
+        tvl1_blocked_level_solve,
+        tvl1_blocked_level_solve_plain,
+    )
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
+
+    dev = torch.device("cuda")
+    # Fixed counts, epsilon 0: kernel, plain version and level kernel do the
+    # same float32 arithmetic (FMA contraction and the order of nothing
+    # else differ), 64 accumulating iterations.
+    tol = 1e-3
+    fixed = TVL1Params(nscales=1, warps=2, iterations=32, epsilon=0.0)
+    cases = []
+    main_case = None
+    for shape in ((4, SECTION_H, SECTION_W), (1, 512, 8192)):
+        n, h, w = shape
+        i0, i1, u1, u2 = (
+            torch.from_numpy(a).to(dev)
+            for a in make_level_inputs(n, h, w, seed=31 + w)
+        )
+        before = tvl1_blocked_level_solve.launches
+        k1, k2, kit = tvl1_blocked_level_solve(i0, i1, u1, u2, fixed)
+        torch.cuda.synchronize()
+        if tvl1_blocked_level_solve.launches != before + 1:
+            fail("the blocked wrapper did not count its launch")
+        p1, p2, pit = tvl1_blocked_level_solve_plain(i0, i1, u1, u2, fixed)
+        a1, a2, ait = tvl1_level_solve(i0, i1, u1, u2, fixed)
+        torch.cuda.synchronize()
+        diff = max(max_abs_diff(k1, p1), max_abs_diff(k2, p2))
+        diff_a = max(max_abs_diff(k1, a1), max_abs_diff(k2, a2))
+        finite = bool(torch.isfinite(k1).all() and torch.isfinite(k2).all())
+        ms = time_cuda(
+            lambda: tvl1_blocked_level_solve(i0, i1, u1, u2, fixed), 3)
+        a_ms = time_cuda(lambda: tvl1_level_solve(i0, i1, u1, u2, fixed), 3)
+        plain_ms = time_cuda(
+            lambda: tvl1_blocked_level_solve_plain(i0, i1, u1, u2, fixed), 2)
+        bound, bound_by = level_bound_ms(n, h, w, fixed.warps, int(kit.sum()))
+        case = {
+            "kernel": "tvl1_blocked_level_solve", "shape": list(shape),
+            "warps": fixed.warps, "iterations": fixed.iterations,
+            "k": BLOCKED_K, "epsilon": 0.0, "max_abs_du": diff,
+            "max_abs_du_vs_level_kernel": diff_a, "tolerance": tol,
+            "flow_moved_px": max_abs_diff(k1, u1),
+            "iters": kit.tolist(), "kernel_ms": ms,
+            "level_kernel_ms": a_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            # device launches of one call: 2 set-up, per sweep 1 warp and C
+            # chunks, 1 output; the level kernel: one per iteration
+            "device_launches": 3 + fixed.warps * (
+                1 + -(-fixed.iterations // BLOCKED_K)),
+            "level_kernel_device_launches":
+            3 + fixed.warps * (2 + fixed.iterations),
+        }
+        cases.append(case)
+        if not finite or not diff <= tol or not diff_a <= tol:
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"blocked kernel at {shape}: max|du| {diff} against its "
+                 f"plain version, {diff_a} against the level kernel, "
+                 f"tolerance {tol}")
+        if not (torch.equal(kit, pit) and torch.equal(kit, ait)) \
+                or case["flow_moved_px"] < 1e-3:
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"blocked kernel iteration count or flow update wrong "
+                 f"at {shape}")
+        if main_case is None:
+            main_case = case
+        del i0, i1, u1, u2, k1, k2, p1, p2, a1, a2
+
+    # The per-image exit at full counts. Kernel and plain version test the
+    # same rule (after every k-th iteration, on that iteration's error), so
+    # the counts must be identical unless an error lands within rounding of
+    # the threshold.
+    full = TVL1Params(nscales=1)
+    n, h, w = 4, SECTION_H, SECTION_W
+    i0, i1, u1, u2, truth_x = eps_exit_inputs(dev, h, w)
+    k1, k2, kit = tvl1_blocked_level_solve(i0, i1, u1, u2, full)
+    p1, p2, pit = tvl1_blocked_level_solve_plain(i0, i1, u1, u2, full)
+    a1, a2, ait = tvl1_level_solve(i0, i1, u1, u2, full)
+    torch.cuda.synchronize()
+    ms = time_cuda(lambda: tvl1_blocked_level_solve(i0, i1, u1, u2, full), 2)
+    a_ms = time_cuda(lambda: tvl1_level_solve(i0, i1, u1, u2, full), 2)
+    plain_ms = time_cuda(
+        lambda: tvl1_blocked_level_solve_plain(i0, i1, u1, u2, full), 1)
+
+    def epe(a, b):
+        return float(torch.hypot(a - truth_x, b + 0.6 * truth_x).mean())
+
+    bound, bound_by = level_bound_ms(n, h, w, full.warps, int(kit.sum()))
+    eps_case = {
+        "kernel": "tvl1_blocked_level_solve", "shape": [n, h, w],
+        "warps": full.warps, "iterations": full.iterations, "k": BLOCKED_K,
+        "epsilon": full.epsilon, "iters_kernel": kit.tolist(),
+        "iters_plain": pit.tolist(), "iters_level_kernel": ait.tolist(),
+        "epe_kernel": epe(k1, k2), "epe_plain": epe(p1, p2),
+        "epe_level_kernel": epe(a1, a2),
+        "max_abs_du": max(max_abs_diff(k1, p1), max_abs_diff(k2, p2)),
+        "kernel_ms": ms, "level_kernel_ms": a_ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    cases.append(eps_case)
+    emit({"phase": "kernels", "cases": cases})
+    if kit.tolist() != pit.tolist():
+        fail(f"blocked kernel per-image iteration counts {kit.tolist()} "
+             f"differ from its plain version's {pit.tolist()}")
+    if len(set(kit.tolist())) < 2 or max(kit.tolist()) >= 1500:
+        fail(f"images were expected to stop at different counts: "
+             f"{kit.tolist()}")
+    if any(c % BLOCKED_K not in (0, 300 % BLOCKED_K) for c in kit.tolist()):
+        fail(f"counts are not whole chunks: {kit.tolist()}")
+    if not abs(eps_case["epe_kernel"] - eps_case["epe_plain"]) <= 0.01:
+        fail("EPE of blocked kernel and plain version differ")
+    return main_case
+
+
+def kernels_chunk():
+    """The chunk kernel (csrc/tvl1_chunk.cu) against its plain version: tile
+    mode at a full section's finest level, one-block mode at the coarsest
+    level of a strip with the in-kernel exit."""
+    import torch
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import (
+        CHUNK_K,
+        chunk_geometry,
+        tvl1_chunk,
+        tvl1_chunk_plain,
+    )
+    from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
+
+    dev = torch.device("cuda")
+    params = TVL1Params(nscales=1)
+    cases = []
+
+    def chunk_inputs(n, h, w, seed):
+        """ro from a real warp, and a state that has run one chunk, so that
+        the duals are not zero."""
+        i0, i1, u1, u2 = (
+            torch.from_numpy(a).to(dev)
+            for a in make_level_inputs(n, h, w, seed=seed)
+        )
+        i1x, i1y = centered_gradient(i1)
+        _, wx, wy, _, rho = warp_backward(i0, i1, i1x, i1y, u1, u2)
+        ro = torch.stack([wx, wy, rho], dim=1).contiguous()
+        z = torch.zeros_like(u1)
+        state = torch.stack([u1, u2, z, z, z, z], dim=1).contiguous()
+        state, _ = tvl1_chunk_plain(ro, state, CHUNK_K, -1.0, params)
+        return ro, state.contiguous()
+
+    # tile mode, m = 8: the same arithmetic on the same values, 8 iterations
+    n, h, w = 4, SECTION_H, SECTION_W
+    ro, state = chunk_inputs(n, h, w, seed=57)
+    geo = chunk_geometry(h, w)
+    active = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    before = tvl1_chunk.launches
+    ks, ke = tvl1_chunk(ro, state, CHUNK_K, -1.0, params, active=active,
+                        iters=iters)
+    torch.cuda.synchronize()
+    if tvl1_chunk.launches != before + 1:
+        fail("the chunk wrapper did not count its launch")
+    piters = torch.zeros_like(iters)
+    ps, pe = tvl1_chunk_plain(ro, state, CHUNK_K, -1.0, params,
+                              active=active, iters=piters)
+    diff = max_abs_diff(ks, ps)
+    err_rel = float(((ke - pe).abs() / pe.abs().clamp(min=1e-12)).max())
+    ms = time_cuda(lambda: tvl1_chunk(ro, state, CHUNK_K, -1.0, params), 5)
+    plain_ms = time_cuda(
+        lambda: tvl1_chunk_plain(ro, state, CHUNK_K, -1.0, params), 2)
+    bound, bound_by = chunk_bound_ms(n, h, w, geo.blocks, n * CHUNK_K)
+    main_case = {
+        "kernel": "tvl1_chunk", "mode": "tiles", "shape": [n, h, w],
+        "m": CHUNK_K, "blocks": geo.blocks, "max_abs_du": diff,
+        "tolerance": 1e-4, "errs_max_rel": err_rel, "errs_tolerance": 1e-3,
+        "iters": iters.tolist(), "stopped_image_passed_through":
+        bool(torch.equal(ks[2], state[2])) and float(ke[2].abs().max()) == 0,
+        "state_moved": max_abs_diff(ks[0], state[0]),
+        "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+    cases.append(main_case)
+    if not (diff <= 1e-4 and err_rel <= 1e-3
+            and bool(torch.isfinite(ks).all())):
+        emit({"phase": "kernels", "cases": cases})
+        fail(f"chunk kernel (tiles) differs from its plain version: state "
+             f"{diff}, errs relative {err_rel}")
+    if not (main_case["stopped_image_passed_through"]
+            and iters.tolist() == piters.tolist() == [8, 8, 0, 8]
+            and main_case["state_moved"] > 1e-3):
+        emit({"phase": "kernels", "cases": cases})
+        fail("chunk kernel (tiles): pass-through, iteration counts or "
+             "update wrong")
+    del ro, state, ks, ps
+
+    # one-block mode: every image leaves its loop at its own iteration
+    n, h, w = 32, 34, 137
+    ro, state = chunk_inputs(n, h, w, seed=71)
+    thresh = params.epsilon ** 2 * h * w
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    piters = torch.zeros_like(iters)
+    ks, ke = tvl1_chunk(ro, state, params.iterations, thresh, params,
+                        iters=iters)
+    torch.cuda.synchronize()
+    ps, pe = tvl1_chunk_plain(ro, state, params.iterations, thresh, params,
+                              iters=piters)
+    diff = max_abs_diff(ks, ps)
+    ms = time_cuda(
+        lambda: tvl1_chunk(ro, state, params.iterations, thresh, params), 5)
+    plain_ms = time_cuda(
+        lambda: tvl1_chunk_plain(ro, state, params.iterations, thresh,
+                                 params), 1)
+    bound, bound_by = chunk_bound_ms(n, h, w, 1, int(iters.sum()))
+    case = {
+        "kernel": "tvl1_chunk", "mode": "one block", "shape": [n, h, w],
+        "m": params.iterations, "thresh": thresh, "max_abs_du": diff,
+        "tolerance": 1e-4, "iters_kernel": iters.tolist(),
+        "iters_plain": piters.tolist(), "kernel_ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+    }
+    cases.append(case)
+    emit({"phase": "kernels", "cases": cases})
+    if not chunk_geometry(h, w).one_block:
+        fail(f"{h} x {w} was expected to run in one block")
+    if iters.tolist() != piters.tolist():
+        fail(f"chunk kernel (one block) left its loop at {iters.tolist()}, "
+             f"its plain version at {piters.tolist()}")
+    if not (0 < int(iters.min()) and int(iters.max()) < params.iterations):
+        fail(f"the in-kernel exit was not taken: {iters.tolist()}")
+    if not (diff <= 1e-4 and bool(torch.isfinite(ks).all())):
+        fail(f"chunk kernel (one block) differs from its plain version: "
+             f"{diff}")
+    if not bool(((ke[:, 0] <= thresh) & (pe[:, 0] <= thresh)).all()):
+        fail("an image left its loop above the threshold")
+    return main_case
 
 
 def phase_solve():
@@ -459,8 +828,14 @@ def phase_levels(pairs):
             "design_floor_ms":
             total_iters * h * w * 60 / PEAK_BYTES_PER_S * 1e3,
         })
+    busy_ms, profiler_note = device_busy_ms(
+        lambda: solve_pyramid(i0, i1, params, None, timed))
+    records.clear()
     emit({"phase": "levels", "shape": list(i0.shape), "solve_ms": total_ms,
-          "enqueue_ms": enqueue_ms,
+          "enqueue_ms": enqueue_ms, "device_busy_ms": busy_ms,
+          "device_busy_share":
+          None if busy_ms is None else busy_ms / total_ms,
+          "profiler": profiler_note,
           "kernel_ms_sum": sum(l["kernel_ms"] for l in levels),
           "bound_ms_sum": sum(l["bound_ms"] for l in levels),
           "design_floor_ms_sum": sum(l["design_floor_ms"] for l in levels),
@@ -559,7 +934,6 @@ def phase_job(results, tmp):
     import torch
 
     from optflow_tpu_torch.engine.batch_runner import run_job_batched
-    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
 
     n_pairs = 64
     n_frames = n_pairs // MAX_DZ + MAX_DZ + 1
@@ -582,14 +956,14 @@ def phase_job(results, tmp):
     job = build_job(names, n_pairs, os.path.join(tmp, "job.journal"), "job")
     sink = MockRenderSink()
     # the main path: counts are set to 0 just before and read just after
-    tvl1_level_solve.launches = 0
+    zero_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):  # the per-pair progress
         stats = run_job_batched(job, sink=sink, loader=loader, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = tvl1_level_solve.launches
+    launches = read_launch_counts()["tvl1_level_solve"]
 
     err, n_matches = gate_matches(sink.match_sets, job)
     mp_per_pair = 2 * STRIP * (SRC_W * SCALE) / 1e6
@@ -611,7 +985,7 @@ def phase_job(results, tmp):
         fail(f"expected {n_pairs * 50} matches, got {stats['matches']}")
     if err is None or not err <= 1.0:
         fail(f"mean match error {err} > 1.0 full-res px")
-    results["main_path_launches"] = launches
+    results.setdefault("launches", {})["tvl1_level_solve"] = launches
     results["sections"] = sections
 
 
@@ -663,7 +1037,7 @@ def phase_cli(results, tmp):
     last_line = proc.stdout.strip().splitlines()[-1]
     # the CLI's own count of level-kernel launches, from its `done:` line:
     # 16 pairs are one group, whose solve launches once per pyramid level
-    found = re.search(r"'kernel_launches': (\d+)", last_line)
+    found = re.search(r"'tvl1_level_solve': (\d+)", last_line)
     launches = int(found.group(1)) if found else None
     emit({"phase": "cli", "decoder": decoder, "pairs": len(match_sets),
           "gated_matches": n_matches, "match_err_px": err, "gate_px": 1.0,
@@ -675,6 +1049,197 @@ def phase_cli(results, tmp):
         fail(f"the CLI emitted {len(match_sets)} match sets, not {n_pairs}")
     if err is None or not err <= 1.0:
         fail(f"CLI mean match error {err} > 1.0 full-res px")
+
+
+def section_job(names, n_pairs, output_type, out_dir, tag):
+    """Reference-schema job dict: chained pairs of whole sections, one
+    `custom` ROI covering the scaled frame, TIFF output."""
+    job = build_job(names, n_pairs, None, tag)
+    del job["journal"], job["npoints"]
+    job.update({
+        "output_type": output_type, "output_dir": out_dir, "pair_batch": 4,
+        "rois": {"custom": [0, 0, SECTION_W, SECTION_H]}, "features": False,
+        "match_sink": "null",  # TIFF output: nothing goes to a match service
+    })
+    return job
+
+
+def gate_tiffs(job, output_type, border=16):
+    """Mean error of the written fields against the known shift
+    dz * (DX_STEP, DY_STEP) * SCALE, working-resolution px, away from the
+    border (where the content the shift needs has left the frame)."""
+    from optflow_tpu_torch.core.imgio import read_float_tiff
+
+    ys, xs = np.mgrid[0:SECTION_H, 0:SECTION_W].astype(np.float32)
+    inner = (slice(border, -border), slice(border, -border))
+    errs = []
+    for im in job["images"]:
+        base = f"{job['output_dir']}/{im['output_name']}_{SCALE:0.2f}"
+        fx = read_float_tiff(base + "_x.tiff")
+        fy = read_float_tiff(base + "_y.tiff")
+        if fx.shape != (SECTION_H, SECTION_W) or fy.shape != fx.shape:
+            fail(f"{base}_x.tiff has shape {fx.shape}")
+        if not (np.isfinite(fx).all() and np.isfinite(fy).all()):
+            fail(f"{base}: field is not finite")
+        if output_type == "map":
+            fx, fy = fx - xs, fy - ys
+        errs.append(float(np.hypot(
+            fx[inner] - im["dz"] * DX_STEP * SCALE,
+            fy[inner] - im["dz"] * DY_STEP * SCALE,
+        ).mean()))
+    return errs
+
+
+def phase_section(results, tmp):
+    """Full sections: every level above the fused budget goes to the blocked
+    kernel, the rest to the level kernel."""
+    import torch
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.engine.batch_runner import run_job_batched
+    from optflow_tpu_torch.ops import tvl1_cuda
+    from optflow_tpu_torch.ops.tvl1 import solve_pyramid, tvl1_flow_batched
+
+    dev = torch.device("cuda")
+    params = TVL1Params()  # reference defaults
+    for n, h, w in SECTION_SOLVES:
+        pairs = [make_pair(h, w, DX, DY, seed=40 + s) for s in range(n)]
+        i0 = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+        i1 = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+        zero_launch_counts()
+        flow = tvl1_flow_batched(i0, i1, params)  # the entry point, checked
+        torch.cuda.synchronize()
+        counts = read_launch_counts()
+        epe = float(torch.hypot(flow[..., 0] - DX, flow[..., 1] - DY).mean())
+
+        # the same solve once more, each level's kernel call timed
+        records = []
+
+        def timed(a, b, u1, u2, p, u3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = tvl1_cuda._kernel_level_solver(a, b, u1, u2, p, u3)
+            end.record()
+            records.append((tuple(a.shape), start, end, out[3]))
+            return out
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flow2 = solve_pyramid(i0, i1, params, None, timed)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        levels = []
+        for (ln, lh, lw), start, end, iters in records:
+            total = int(iters.sum())
+            bound, bound_by = level_bound_ms(ln, lh, lw, params.warps, total)
+            levels.append({
+                "shape": [ln, lh, lw], "kernel":
+                "tvl1_blocked_level_solve"
+                if tvl1_cuda.takes_blocked_kernel(lh, lw)
+                else "tvl1_level_solve",
+                "kernel_ms": start.elapsed_time(end), "iters_sum": total,
+                "iters_max": int(iters.max()), "bound_ms": bound,
+                "bound_by": bound_by,
+            })
+        emit({"phase": "section", "shape": [n, h, w], "epe_px": epe,
+              "gate_px": 0.5, "solve_ms": ms, "enqueue_ms": enqueue_ms,
+              "mp_pairs_per_s": n * h * w / 1e6 / (ms / 1e3),
+              "launches": counts,
+              "rerun_max_abs_diff": max_abs_diff(flow, flow2),
+              "levels": levels})
+        if tuple(flow.shape) != (n, h, w, 2) or not bool(
+                torch.isfinite(flow).all()):
+            fail(f"section flow at {(n, h, w)}: wrong shape or not finite")
+        if counts["tvl1_blocked_level_solve"] < 1:
+            fail(f"the {(n, h, w)} solve did not launch the blocked kernel")
+        if counts["tvl1_level_solve"] < 1:
+            fail(f"the {(n, h, w)} solve did not launch the level kernel")
+        if not epe <= 0.5:
+            fail(f"section solve at {(n, h, w)}: mean EPE {epe} > 0.5 px")
+        del i0, i1, flow, flow2
+
+    # style-1 jobs of whole sections with TIFF output, frames from memory
+    n_frames = 8 // MAX_DZ + MAX_DZ + 1
+    sections = (results.get("sections")
+                or synth_stack(n_frames, SRC_H, SRC_W))[:n_frames]
+    names = [f"mem://sec_{z:04d}" for z in range(n_frames)]
+    half = {
+        nm: s.reshape(SRC_H // 2, 2, SRC_W // 2, 2).astype(np.float32)
+        .mean(axis=(1, 3))
+        for nm, s in zip(names, sections)
+    }
+    for output_type, n_pairs in (("map", 8), ("flow", 2)):
+        out_dir = os.path.join(tmp, f"section_{output_type}")
+        job = section_job(names, n_pairs, output_type, out_dir, output_type)
+        # a main path: counts are set to 0 just before and read just after
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = run_job_batched(
+                job, loader=lambda path, scale: half[path], device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launch_counts()
+        errs = gate_tiffs(job, output_type)
+        emit({"phase": "section", "job": output_type, "pairs": stats["pairs"],
+              "batched": stats["batched"], "files": 2 * n_pairs,
+              "field_err_px": errs, "gate_px": 0.5, "wall_s": wall,
+              "mp_pairs_per_s":
+              stats["pairs"] * SECTION_H * SECTION_W / 1e6 / wall,
+              "launches": counts, "solve_device": stats.get("solve_device"),
+              "timing": stats["timing"]})
+        if stats["batched"] != n_pairs or stats["sequential"] != 0:
+            fail(f"expected all {n_pairs} {output_type} pairs batched: {stats}")
+        if counts["tvl1_blocked_level_solve"] < 1:
+            fail(f"the {output_type} job did not launch the blocked kernel")
+        if not str(stats.get("solve_device", "")).startswith("cuda"):
+            fail(f"the {output_type} job ran on {stats.get('solve_device')}")
+        if not max(errs) <= 0.5:
+            fail(f"{output_type} job: field error {max(errs)} > 0.5 px")
+        if output_type == "map":
+            results.setdefault("launches", {})[
+                "tvl1_blocked_level_solve"] = counts["tvl1_blocked_level_solve"]
+
+
+def phase_level_api(results):
+    """The per-level API: tvl1_flow with the level solver that
+    default_level_solver picks for CUDA tensors, the chunk kernel's."""
+    import torch
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops.tvl1 import default_level_solver, tvl1_flow
+
+    dev = torch.device("cuda")
+    im0, im1 = make_pair(SECTION_H, SECTION_W, DX, DY, seed=3)
+    i0 = torch.from_numpy(im0).to(dev)
+    i1 = torch.from_numpy(im1).to(dev)
+    params = TVL1Params()
+    solver = default_level_solver(i0, i1)
+    tvl1_flow(i0, i1, params, level_solver=solver)  # warm-up
+    # a main path: counts are set to 0 just before and read just after
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow = tvl1_flow(i0, i1, params, level_solver=solver)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launch_counts()
+    epe = float(torch.hypot(flow[..., 0] - DX, flow[..., 1] - DY).mean())
+    emit({"phase": "level_api", "shape": [SECTION_H, SECTION_W],
+          "solver": solver.__name__, "epe_px": epe, "gate_px": 0.5,
+          "solve_ms": ms, "enqueue_ms": enqueue_ms, "launches": counts})
+    if tuple(flow.shape) != (SECTION_H, SECTION_W, 2) or not bool(
+            torch.isfinite(flow).all()):
+        fail("level_api flow: wrong shape or not finite")
+    if counts["tvl1_chunk"] < 1:
+        fail("tvl1_flow(level_solver=...) did not launch the chunk kernel")
+    if not epe <= 0.5:
+        fail(f"level_api: mean EPE {epe} > 0.5 px")
+    results.setdefault("launches", {})["tvl1_chunk"] = counts["tvl1_chunk"]
 
 
 def main(argv=None) -> int:
@@ -703,24 +1268,32 @@ def main(argv=None) -> int:
             phase_job(results, tmp)
         if "cli" in phases:
             phase_cli(results, tmp)
+        if "section" in phases:
+            phase_section(results, tmp)
+        if "level_api" in phases:
+            phase_level_api(results)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     complete = set(ALL_PHASES) <= set(phases)
     print(gpu_name_and_limit(), flush=True)
-    case = results.get("kernel_case")
-    if case is not None:
+    cases = results.get("kernel_cases")
+    if cases is not None:
+        launches = results.get("launches", {})
         emit({"kernels": [{
-            "name": "tvl1_level_solve", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-            "launches": results.get("main_path_launches", 0),
-            "shape": case["shape"], "warps": case["warps"],
-            "iterations": case["iterations"],
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": launches.get(name, 0),
+            "shape": case["shape"],
+            **{k: case[k] for k in ("warps", "iterations", "k", "m", "mode")
+               if k in case},
             "max_abs_err": case["max_abs_du"], "tolerance": case["tolerance"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            # no PyTorch call computes a TV-L1 level or chunk
             "library_ms": None,
-        }]})
+        } for name, case in cases.items()]})
+        if complete and any(launches.get(name, 0) < 1 for name in cases):
+            fail(f"a kernel was not launched on its main path: {launches}")
     if not complete:
         print("chip_smoke: partial run (--phases): no result line",
               file=sys.stderr)

@@ -64,10 +64,16 @@ def main(argv=None) -> int:
                 stats = run_job(args, device=ns.device)
         if ns.profile_dir:
             print(f"profiler trace written to {ns.profile_dir}")
+        from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
+            tvl1_blocked_level_solve,
+        )
         from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
 
-        # level-kernel launches of this process: 0 when the job ran on the CPU
-        stats["kernel_launches"] = tvl1_level_solve.launches
+        # kernel launches of this process: 0 when the job ran on the CPU
+        stats["kernel_launches"] = {
+            "tvl1_level_solve": tvl1_level_solve.launches,
+            "tvl1_blocked_level_solve": tvl1_blocked_level_solve.launches,
+        }
         print(f"done: {stats}")
         return 0
     if style == 2:

@@ -9,6 +9,14 @@ nothing of the other, and return this package's types and layouts:
 - flow: ``(N, H, W, 2)`` float32, ``[..., 0]`` = x
 - level state: ``(N, 6, H, W)`` float32 in the order
   u1, u2, p11, p12, p21, p22
+- warped arrays of a sweep: ``(N, 3, H, W)`` float32 in the order
+  i1wx, i1wy, rho_c
+
+The JAX package's level kernels take the last two zero-padded to a canvas
+``(N, C, Hp, Wp)`` (rows to a multiple of 8 or of the row block, columns to
+a multiple of 128) with the real ``h, w`` beside it; this package's kernels
+take them unpadded. :func:`canvas_to_tensor` and :func:`tensor_to_canvas`
+go between the two.
 """
 
 from __future__ import annotations
@@ -53,6 +61,34 @@ def level_state_from_numpy(
         np.asarray(p, np.float32) for p in duals
     ]
     return torch.as_tensor(np.stack(planes, axis=1), device=device)
+
+
+def canvas_to_tensor(
+    canvas: np.ndarray, h: int, w: int, device="cuda"
+) -> torch.Tensor:
+    """A padded ``(N, C, Hp, Wp)`` canvas of the JAX package (level state,
+    C = 6, or warped arrays, C = 3) -> this package's contiguous
+    ``(N, C, h, w)`` float32 tensor: the padding is cut off."""
+    canvas = np.asarray(canvas, np.float32)
+    if canvas.ndim != 4 or canvas.shape[1] not in (3, 6):
+        raise ValueError(f"expected (N, 3 or 6, Hp, Wp), got {canvas.shape}")
+    if canvas.shape[2] < h or canvas.shape[3] < w:
+        raise ValueError(f"canvas {canvas.shape} is smaller than {(h, w)}")
+    return torch.as_tensor(
+        np.ascontiguousarray(canvas[:, :, :h, :w]), device=device
+    )
+
+
+def tensor_to_canvas(t: torch.Tensor, hp: int, wp: int) -> np.ndarray:
+    """This package's ``(N, C, h, w)`` tensor -> the JAX package's
+    ``(N, C, hp, wp)`` float32 canvas, zero-padded below and to the right."""
+    arr = t.detach().to("cpu", torch.float32).numpy()
+    n, c, h, w = arr.shape
+    if hp < h or wp < w:
+        raise ValueError(f"canvas {(hp, wp)} is smaller than {(h, w)}")
+    out = np.zeros((n, c, hp, wp), np.float32)
+    out[:, :, :h, :w] = arr
+    return out
 
 
 def flow_from_numpy(flow: np.ndarray, device="cuda") -> torch.Tensor:

@@ -54,47 +54,22 @@
 // primal update, 28 in the dual one, a multiply-add counted as 2; the tally
 // is in chip_smoke.py) plus the apron's share of the primal update, far
 // below the card's float32 rate at 60 B/px. Keeping a tile resident over
-// several iterations (a k-row halo), a persistent cooperative kernel and
-// CUDA graphs are the known ways out; none is taken here.
+// several iterations (a k-pixel halo: tvl1_blocked.cu does that for the
+// large levels), a persistent cooperative kernel and CUDA graphs are the
+// known ways out; none is taken here.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tvl1_common.cuh"
 
 namespace {
 
 constexpr int TX = 32;  // tile width  = blockDim.x
 constexpr int TY = 8;   // tile height = blockDim.y
-constexpr float GRAD_EPS = 1.192092896e-07f;
 
 // State layout: state[(buf * 6 + c) * N + n][h][w], c = u1, u2, p11, p12,
 // p21, p22; buf is the ping-pong half.
 __device__ __forceinline__ size_t plane_off(int buf, int c, int n, int N,
                                             size_t hw) {
   return ((size_t)(buf * 6 + c) * N + n) * hw;
-}
-
-__device__ __forceinline__ float hat(float t) {
-  // central lobe of the Catmull-Rom cubic on t in [0, 1]
-  return t * t * (1.5f * t - 2.5f) + 1.0f;
-}
-
-// Centered differences of i1 with a replicated border at the real h x w.
-__global__ void gradient_kernel(const float* __restrict__ i1,
-                                float* __restrict__ gx, float* __restrict__ gy,
-                                int h, int w) {
-  int x = blockIdx.x * TX + threadIdx.x;
-  int y = blockIdx.y * TY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  size_t hw = (size_t)h * w;
-  const float* im = i1 + blockIdx.z * hw;
-  size_t o = (size_t)y * w + x;
-  float c = im[o];
-  float r = (x < w - 1) ? im[o + 1] : c;
-  float l = (x > 0) ? im[o - 1] : c;
-  float d = (y < h - 1) ? im[o + w] : c;
-  float u = (y > 0) ? im[o - w] : c;
-  gx[blockIdx.z * hw + o] = 0.5f * (r - l);
-  gy[blockIdx.z * hw + o] = 0.5f * (d - u);
 }
 
 // Backward warp of (i1, i1x, i1y) by the image's current flow and the
@@ -118,31 +93,9 @@ __global__ void warp_kernel(const float* __restrict__ i0,
   float u1 = state[plane_off(src, 0, n, N, hw) + o];
   float u2 = state[plane_off(src, 1, n, N, hw) + o];
 
-  // fminf/fmaxf drop a NaN operand, so the taps stay inside the image
-  float xf = fminf(fmaxf((float)x + u1, 0.0f), (float)w - 1.0f);
-  float yf = fminf(fmaxf((float)y + u2, 0.0f), (float)h - 1.0f);
-  float x0 = fminf(floorf(xf), (float)w - 2.0f);
-  float y0 = fminf(floorf(yf), (float)h - 2.0f);
-  float fx = xf - x0;
-  float fy = yf - y0;
-  float wx0 = hat(fx), wx1 = hat(1.0f - fx);
-  float wy0 = hat(fy), wy1 = hat(1.0f - fy);
-  float inv_norm = 1.0f / ((wx0 + wx1) * (wy0 + wy1));
-  size_t b = n * hw + (size_t)((int)y0) * w + (int)x0;
-
-  float s[3];
-  const float* srcs[3] = {i1, gx, gy};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float* im = srcs[k];
-    float top = wx0 * im[b] + wx1 * im[b + 1];
-    float bot = wx0 * im[b + w] + wx1 * im[b + w + 1];
-    s[k] = inv_norm * (wy0 * top + wy1 * bot);
-  }
   size_t g = n * hw + o;
-  wxo[g] = s[1];
-  wyo[g] = s[2];
-  rho[g] = s[0] - s[1] * u1 - s[2] * u2 - i0[g];
+  warp_pixel(i0 + n * hw, i1 + n * hw, gx + n * hw, gy + n * hw, h, w, x, y,
+             u1, u2, wxo + g, wyo + g, rho + g);
 }
 
 // One primal-dual iteration of every image that has not met its exit.
@@ -213,26 +166,9 @@ __global__ void __launch_bounds__(TX* TY)
       int x = bx + lx, y = by + ly;
       if (x >= w || y >= h) continue;
       size_t o = (size_t)y * w + x;
-      float a = i1wx[o], b = i1wy[o];
       float U1 = u1[o], U2 = u2[o];
-      float grad = a * a + b * b;
-      float rho = rho_c[o] + a * U1 + b * U2;
-      float t = l_t * grad;
       float d1, d2;
-      if (rho < -t) {
-        d1 = l_t * a;
-        d2 = l_t * b;
-      } else if (rho > t) {
-        d1 = -l_t * a;
-        d2 = -l_t * b;
-      } else if (grad > GRAD_EPS) {
-        float fi = -rho / fmaxf(grad, GRAD_EPS);
-        d1 = fi * a;
-        d2 = fi * b;
-      } else {
-        d1 = 0.0f;
-        d2 = 0.0f;
-      }
+      threshold_step(i1wx[o], i1wy[o], rho_c[o], U1, U2, l_t, &d1, &d2);
       // backward-difference divergence: p itself at the first row/column
       float q11 = p11[o], q12 = p12[o], q21 = p21[o], q22 = p22[o];
       float div1 = (x > 0 ? q11 - p11[o - 1] : q11) +
@@ -322,18 +258,6 @@ __global__ void output_kernel(const float* __restrict__ state,
 }
 
 }  // namespace
-
-#define CHECK_LAUNCH()                     \
-  do {                                     \
-    cudaError_t e_ = cudaGetLastError();   \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
-
-#define CHECK_CALL(expr)                   \
-  do {                                     \
-    cudaError_t e_ = (expr);               \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
 
 extern "C" {
 

@@ -35,6 +35,7 @@ from optflow_tpu_torch.core.config import JobConfig, TVL1Params, resolve_feature
 from optflow_tpu_torch.core.imgio import ImageReadError, write_float_tiff
 from optflow_tpu_torch.engine import device_group as dg
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
+from optflow_tpu_torch.engine.prefetch import make_prefetch_loader
 from optflow_tpu_torch.engine.pair import (
     FEATURES_LATER,
     Aligner,
@@ -153,6 +154,10 @@ def run_job_batched(
     ) == "default_aligner"
     if pair_batch is None:
         pair_batch = int(args.get("pair_batch", 8))
+    prefetch = None
+    if loader is None and args.get("prefetch", True):
+        prefetch = make_prefetch_loader(args)
+        loader = prefetch
     cache = FrameCache(loader)
     if sink is None:
         sink = make_sink(args)
@@ -224,7 +229,7 @@ def run_job_batched(
         solver = _batched_solver(params, mode)
         for roi_key in sorted(t0.rois.keys()):
             roi: Roi = t0.rois[roi_key]
-            with timer.stage("h2d"):
+            with timer.device_stage("h2d", device):
                 a = torch.from_numpy(np.stack(
                     [np.asarray(t.frame0[roi.slices()], np.float32)
                      for t in tasks]
@@ -233,12 +238,14 @@ def run_job_batched(
                     [np.asarray(t.frame1[roi.slices()], np.float32)
                      for t in tasks]
                 )).to(device)
-            with timer.stage("solve"):
+            with timer.device_stage("solve", device):
                 fxs, fys, valids = solver(a, b)
-                stats["solve_device"] = str(fxs.device)
+            stats["solve_device"] = str(fxs.device)
+            with timer.stage("d2h"):
                 fxs = fxs.cpu().numpy()
                 fys = fys.cpu().numpy()
                 valids = valids.cpu().numpy()
+            timer.read_device_events()
             with timer.stage("postprocess"):
                 for j, task in enumerate(tasks):
                     post_process(
@@ -277,7 +284,7 @@ def run_job_batched(
         n = len(tasks)
         npoints = cfg.npoints(t0.im_data)
 
-        with timer.stage("h2d"):
+        with timer.device_stage("h2d", device):
             uniq, f0_idx, f1_idx = _dedup_frames(tasks, n)
             # one stacked upload for the group's cache misses, at the
             # scale-appropriate dtype (f16 only where lossless)
@@ -296,7 +303,7 @@ def run_job_batched(
         payloads = []
         for roi_list in by_shape.values():
             seed = int(group_rng.integers(1, 2 ** 31))
-            with timer.stage("solve"):
+            with timer.device_stage("solve", device):
                 packed, _i0s, _i1s, flow = dg.solve_group_on_device(
                     frames_dev, f0_idx, f1_idx, roi_list, params, mode,
                     npoints, debug=cfg.debug, seed=seed,
@@ -315,6 +322,7 @@ def run_job_batched(
         for pl in ent["payloads"]:
             with timer.stage("sample"):
                 packed_np = pl["packed"].cpu().numpy()  # the one sync
+            timer.read_device_events()  # no wait: what the sync has passed
             samples, counts = dg.unpack_samples(packed_np, n, npoints)
             with timer.stage("postprocess"):
                 for r, (_roi_key, roi) in enumerate(pl["roi_list"]):
@@ -330,56 +338,63 @@ def run_job_batched(
 
     groups: Dict[Tuple, List[_Task]] = {}
 
-    for i, im_data in enumerate(cfg.images):
-        p = str(im_data["p"])
-        q = str(im_data["q"])
-        scale = cfg.scale(im_data)
-        im_data["scale"] = scale
-        if journal and any(
-            k in completed for k in pair_key_aliases(im_data, args)
-        ):
-            stats["resumed"] += 1
-            continue
-        print(f"{p} {q}")
-        try:
-            with timer.stage("decode"):
-                frame0, frame1 = cache.get_pair(p, q, scale)
-        except ImageReadError as e:
-            print(f"Error: {e.args[0]} ", file=sys.stderr)
-            stats["skipped"] += 1
-            continue
-        rows = min(frame0.shape[0], frame1.shape[0])
-        cols = min(frame0.shape[1], frame1.shape[1])
-        rois = resolve_rois(im_data, args, rows, cols)
-        im_data["output"] = cfg.output_path(im_data)
+    def run_pairs():
+        for i, im_data in enumerate(cfg.images):
+            p = str(im_data["p"])
+            q = str(im_data["q"])
+            scale = cfg.scale(im_data)
+            im_data["scale"] = scale
+            if journal and any(
+                k in completed for k in pair_key_aliases(im_data, args)
+            ):
+                stats["resumed"] += 1
+                continue
+            print(f"{p} {q}")
+            try:
+                with timer.stage("decode"):
+                    frame0, frame1 = cache.get_pair(p, q, scale)
+            except ImageReadError as e:
+                print(f"Error: {e.args[0]} ", file=sys.stderr)
+                stats["skipped"] += 1
+                continue
+            rows = min(frame0.shape[0], frame1.shape[0])
+            cols = min(frame0.shape[1], frame1.shape[1])
+            rois = resolve_rois(im_data, args, rows, cols)
+            im_data["output"] = cfg.output_path(im_data)
 
-        if _batchable(im_data, args, frame0, frame1, rois, can_batch_features):
-            key = _group_key(im_data, args, frame0, frame1, rois, cfg)
-            groups.setdefault(key, []).append(
-                _Task(i, im_data, frame0, frame1, rois)
-            )
-            if len(groups[key]) >= pair_batch:
-                flush_group(groups.pop(key))
-        else:
-            with timer.stage("solve"):
-                solve_rois(
-                    frame0, frame1, rois, im_data, args,
-                    aligner=aligner, write_outputs=write_outputs,
-                    device=device,
+            if _batchable(im_data, args, frame0, frame1, rois, can_batch_features):
+                key = _group_key(im_data, args, frame0, frame1, rois, cfg)
+                groups.setdefault(key, []).append(
+                    _Task(i, im_data, frame0, frame1, rois)
                 )
-            stats["pairs"] += 1
-            stats["sequential"] += 1
-            if cfg.output_type(im_data) == "random_points":
-                move_pm(im_data, args)
-                upload_state["pending"] = True
-            if journal:
-                journal.record_pair(pair_key(im_data, args))
-            maybe_flush(i)
+                if len(groups[key]) >= pair_batch:
+                    flush_group(groups.pop(key))
+            else:
+                with timer.stage("solve"):
+                    solve_rois(
+                        frame0, frame1, rois, im_data, args,
+                        aligner=aligner, write_outputs=write_outputs,
+                        device=device,
+                    )
+                stats["pairs"] += 1
+                stats["sequential"] += 1
+                if cfg.output_type(im_data) == "random_points":
+                    move_pm(im_data, args)
+                    upload_state["pending"] = True
+                if journal:
+                    journal.record_pair(pair_key(im_data, args))
+                maybe_flush(i)
 
-    for tasks in groups.values():
-        flush_group(tasks)
-    drain_pending(all_groups=True)
-    maybe_flush(len(cfg.images), force=True)
+        for tasks in groups.values():
+            flush_group(tasks)
+        drain_pending(all_groups=True)
+        maybe_flush(len(cfg.images), force=True)
+
+    try:
+        run_pairs()
+    finally:
+        if prefetch is not None:
+            prefetch.close()  # quiesce the decode threads on any exit
 
     if journal:
         journal.close()

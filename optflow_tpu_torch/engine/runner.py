@@ -27,6 +27,7 @@ from optflow_tpu_torch.core.config import JobConfig
 from optflow_tpu_torch.core.imgio import ImageReadError, read_gray, resize_scale
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
 from optflow_tpu_torch.engine.pair import Aligner, solve_rois
+from optflow_tpu_torch.engine.prefetch import make_prefetch_loader
 from optflow_tpu_torch.engine.rois import resolve_rois
 from optflow_tpu_torch.engine.sampler import move_pm
 from optflow_tpu_torch.sinks.http import make_sink
@@ -71,6 +72,10 @@ def run_job(
 ) -> Dict:
     """Execute a loaded job dict pair by pair on ``device``. Returns stats."""
     cfg = JobConfig(args)
+    prefetch = None
+    if loader is None and args.get("prefetch", True):
+        prefetch = make_prefetch_loader(args)
+        loader = prefetch
     cache = FrameCache(loader)
     if sink is None:
         sink = make_sink(args)
@@ -99,57 +104,61 @@ def run_job(
         if journal:
             journal.record_flush()
 
-    for i, im_data in enumerate(cfg.images):
-        p = str(im_data["p"])
-        q = str(im_data["q"])
-        scale = cfg.scale(im_data)
-        im_data["scale"] = scale
-        if journal and any(
-            k in completed for k in pair_key_aliases(im_data, args)
-        ):
-            stats["resumed"] += 1
-            continue
-        print(f"{p} {q}")
+    try:
+        for i, im_data in enumerate(cfg.images):
+            p = str(im_data["p"])
+            q = str(im_data["q"])
+            scale = cfg.scale(im_data)
+            im_data["scale"] = scale
+            if journal and any(
+                k in completed for k in pair_key_aliases(im_data, args)
+            ):
+                stats["resumed"] += 1
+                continue
+            print(f"{p} {q}")
 
-        try:
-            with timer.stage("decode"):
-                frame0, frame1 = cache.get_pair(p, q, scale)
-        except ImageReadError as e:
-            print(f"Error: {e.args[0]} ", file=sys.stderr)
-            stats["skipped"] += 1
-            continue
+            try:
+                with timer.stage("decode"):
+                    frame0, frame1 = cache.get_pair(p, q, scale)
+            except ImageReadError as e:
+                print(f"Error: {e.args[0]} ", file=sys.stderr)
+                stats["skipped"] += 1
+                continue
 
-        rows = min(frame0.shape[0], frame1.shape[0])
-        cols = min(frame0.shape[1], frame1.shape[1])
-        rois = resolve_rois(im_data, args, rows, cols)
+            rows = min(frame0.shape[0], frame1.shape[0])
+            cols = min(frame0.shape[1], frame1.shape[1])
+            rois = resolve_rois(im_data, args, rows, cols)
 
-        im_data["output"] = cfg.output_path(im_data)
-        with timer.stage("solve"):
-            solve_rois(
-                frame0,
-                frame1,
-                rois,
-                im_data,
-                args,
-                aligner=aligner,
-                write_outputs=write_outputs,
-                device=device,
-            )
-        stats["pairs"] += 1
+            im_data["output"] = cfg.output_path(im_data)
+            with timer.stage("solve"):
+                solve_rois(
+                    frame0,
+                    frame1,
+                    rois,
+                    im_data,
+                    args,
+                    aligner=aligner,
+                    write_outputs=write_outputs,
+                    device=device,
+                )
+            stats["pairs"] += 1
 
-        if cfg.output_type(im_data) == "random_points":
-            move_pm(im_data, args)
-            any_upload_since = True
-        if journal:
-            journal.record_pair(pair_key(im_data, args))
-        if cfg.output_type(im_data) == "random_points":
-            if i > last_upload + batch_size:
-                flush()
-                last_upload = i
-                any_upload_since = False
+            if cfg.output_type(im_data) == "random_points":
+                move_pm(im_data, args)
+                any_upload_since = True
+            if journal:
+                journal.record_pair(pair_key(im_data, args))
+            if cfg.output_type(im_data) == "random_points":
+                if i > last_upload + batch_size:
+                    flush()
+                    last_upload = i
+                    any_upload_since = False
 
-    if any_upload_since:
-        flush()
+        if any_upload_since:
+            flush()
+    finally:
+        if prefetch is not None:
+            prefetch.close()  # quiesce the decode threads on any exit
 
     if journal:
         journal.close()

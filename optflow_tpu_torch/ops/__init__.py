@@ -5,7 +5,12 @@ from optflow_tpu_torch.ops.warp import (
     warp_backward,
 )
 from optflow_tpu_torch.ops.pyramid import build_pyramid, pyramid_shapes, resize_bilinear
-from optflow_tpu_torch.ops.tvl1 import tvl1_flow, tvl1_flow_batched, tvl1_flow_level
+from optflow_tpu_torch.ops.tvl1 import (
+    default_level_solver,
+    tvl1_flow,
+    tvl1_flow_batched,
+    tvl1_flow_level,
+)
 
 __all__ = [
     "centered_gradient",
@@ -15,6 +20,7 @@ __all__ = [
     "build_pyramid",
     "pyramid_shapes",
     "resize_bilinear",
+    "default_level_solver",
     "tvl1_flow",
     "tvl1_flow_batched",
     "tvl1_flow_level",

@@ -3,9 +3,10 @@
 Each ``csrc/<stem>.cu`` has a plain C interface and is compiled with ``nvcc``
 for ``sm_90a`` into a shared library that ``ctypes`` loads. The library is
 built at first use, never at import, into ``build/`` beside the package and
-is named after a hash of the source and the flags, so an edit rebuilds and
-an unchanged source is reused. A failed build raises with the compiler's
-output.
+is named after a hash of the source, the headers beside it and the flags, so
+an edit rebuilds and an unchanged source is reused. A failed build raises
+with the compiler's output. :func:`build_libraries` compiles several sources
+at once, one ``nvcc`` process each.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Iterable, List, Tuple
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "optflow_tpu_torch"
@@ -50,36 +51,52 @@ def find_nvcc() -> str:
 
 
 def library_path(stem: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{stem}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}_{digest}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update((CSRC_DIR / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build_libraries(stems: Iterable[str]) -> None:
+    """Compile every library of ``stems`` that is not built yet, all ``nvcc``
+    processes started together. Raises ``RuntimeError`` with nvcc's output
+    when a build fails."""
+    started: List[Tuple[str, pathlib.Path, pathlib.Path, list, subprocess.Popen]] = []
+    t0 = time.perf_counter()
+    for stem in stems:
+        out = library_path(stem)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{stem}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        started.append((stem, out, tmp, cmd, proc))
+    failures = []
+    for stem, out, tmp, cmd, proc in started:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+            )
+            continue
+        os.replace(tmp, out)
+        build_seconds[stem] = time.perf_counter() - t0
+        # registers / shared memory / spills of every kernel, for the reader
+        out.with_suffix(".log").write_text(log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 def load_library(stem: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<stem>.cu``, compiled if it is not built
     yet. Raises ``RuntimeError`` with nvcc's output when the build fails."""
     lib = _loaded.get(stem)
-    if lib is not None:
-        return lib
-    out = library_path(stem)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{stem}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-        build_seconds[stem] = time.perf_counter() - t0
-        # registers / shared memory / spills of every kernel, for the reader
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(str(out))
-    _loaded[stem] = lib
+    if lib is None:
+        build_libraries([stem])
+        lib = _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
     return lib

@@ -146,12 +146,17 @@ def level_solve_plain(
     u2: torch.Tensor,
     params: TVL1Params,
     u3: Optional[torch.Tensor] = None,
+    exit_every: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run warps x iterations primal-dual at one pyramid level for a batch.
 
     Returns (u1, u2, u3, iterations run per image ``(N,)`` int32, summed
     over the warps). With ``epsilon > 0`` an image stops updating once its
-    own error meets the criterion; the rest of the batch goes on."""
+    own error meets the criterion; the rest of the batch goes on.
+
+    ``exit_every = k`` tests the criterion only after every k-th iteration
+    of a sweep, on that iteration's error: the rule of the blocked level
+    kernel, whose chunks of k iterations run whole."""
     l_t = params.lambda_ * params.theta
     taut = params.tau / params.theta
     n, h, w = i0.shape
@@ -171,7 +176,7 @@ def level_solve_plain(
                 i0, i1, i1x, i1y, state.u1, state.u2
             )
             active = torch.ones(n, dtype=torch.bool, device=i0.device)
-            for _ in range(params.iterations):
+            for it in range(params.iterations):
                 new, err = _iteration(
                     state, i1wx, i1wy, grad, rho_c, l_t, params.theta, taut,
                     params.gamma,
@@ -185,6 +190,8 @@ def level_solve_plain(
                     *(torch.where(keep, a, b) for a, b in zip(new, state))
                 )
                 iters += active.to(torch.int32)
+                if (it + 1) % exit_every != 0:
+                    continue
                 active = active & (err > scaled_eps)
                 if not bool(active.any()):
                     break
@@ -275,11 +282,24 @@ def solve_pyramid(
         return torch.stack([u1, u2], dim=-1)
 
 
+def default_level_solver(*example_args: torch.Tensor):
+    """The per-level solver for :func:`tvl1_flow`'s ``level_solver``
+    argument that suits where the example tensors lie: the chunk-kernel
+    level solve (ops/tvl1_chunk_cuda.py) for CUDA tensors, the plain
+    :func:`tvl1_flow_level` for CPU tensors. The device alone decides."""
+    if any(t is not None and t.is_cuda for t in example_args):
+        from optflow_tpu_torch.ops.tvl1_chunk_cuda import tvl1_flow_level_cuda
+
+        return tvl1_flow_level_cuda
+    return tvl1_flow_level
+
+
 def tvl1_flow(
     i0: torch.Tensor,
     i1: torch.Tensor,
     params: TVL1Params = TVL1Params(),
     init_flow: Optional[torch.Tensor] = None,
+    level_solver=None,
 ) -> torch.Tensor:
     """Full coarse-to-fine TV-L1 flow from i0 to i1.
 
@@ -288,16 +308,27 @@ def tvl1_flow(
       params: solver parameters (reference defaults).
       init_flow: optional (H, W, 2) initial flow, honored when
         ``params.use_initial_flow`` (the reference's useInitialFlow key).
+      level_solver: optional per-level solver with the signature of
+        :func:`tvl1_flow_level` on one ``(H, W)`` image, as
+        :func:`default_level_solver` returns. Without it the solve goes
+        through :func:`tvl1_flow_batched`.
 
     Returns:
       (H, W, 2) float32 flow with [..., 0] = x displacement, [..., 1] = y,
       matching the reference's CV_32FC2 flow layout split at
       src/optflow.cpp:403-404.
     """
-    return tvl1_flow_batched(
-        i0[None], i1[None], params,
-        init_flow=None if init_flow is None else init_flow[None],
-    )[0]
+    flow_init = None if init_flow is None else init_flow[None]
+    if level_solver is None:
+        return tvl1_flow_batched(i0[None], i1[None], params, init_flow=flow_init)[0]
+
+    def one_image(a, b, u1, u2, p, u3):
+        r1, r2, r3 = level_solver(a[0], b[0], u1[0], u2[0], p, u3=u3[0])
+        # a solver of this signature does not report its iteration counts
+        unknown = torch.full((1,), -1, dtype=torch.int32, device=a.device)
+        return r1[None], r2[None], r3[None], unknown
+
+    return solve_pyramid(i0[None], i1[None], params, flow_init, one_image)[0]
 
 
 def tvl1_flow_batched(

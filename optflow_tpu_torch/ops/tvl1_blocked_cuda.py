@@ -1,0 +1,148 @@
+"""The blocked TV-L1 level solve on the GPU: wrapper of the hand-written CUDA
+kernel (``csrc/tvl1_blocked.cu``) and its plain PyTorch version.
+
+:func:`tvl1_blocked_level_solve` has the signature of
+``ops.tvl1_cuda.tvl1_level_solve`` and solves the same level, for levels too
+large for that kernel's counterpart in the JAX package: the iterations run
+in chunks of ``k`` on halo-extended tiles held in shared memory, and an
+image's epsilon exit is tested once per chunk, on the chunk's last
+iteration. On a CUDA tensor it launches the kernel or raises; a CPU tensor
+takes :func:`tvl1_blocked_level_solve_plain`, which applies the same exit
+rule on whole images.
+
+The library is compiled at the first CUDA call (``ops/_build.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from optflow_tpu_torch.core.config import TVL1Params
+from optflow_tpu_torch.ops import _build
+from optflow_tpu_torch.ops.tvl1 import level_solve_plain
+from optflow_tpu_torch.ops.tvl1_cuda import _check_inputs
+
+# Iterations per chunk = halo width: the JAX package's _BLOCKED_K
+# (optflow_tpu/ops/tvl1_pallas.py:738). Also the most the kernel's
+# (32 + 2k) x (64 + 2k) x 36 B window allows in 227 KB of shared memory.
+BLOCKED_K = 16
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load_library("tvl1_blocked")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tvl1_blocked_level_solve.argtypes = (
+            [ptr] * 10 + [i32] * 6 + [f32] * 4 + [ptr]
+        )
+        lib.tvl1_blocked_level_solve.restype = i32
+        lib.tvl1_blocked_scratch_floats.argtypes = [i32] * 3
+        lib.tvl1_blocked_scratch_floats.restype = ctypes.c_longlong
+        lib.tvl1_blocked_err_floats.argtypes = [i32] * 6
+        lib.tvl1_blocked_err_floats.restype = ctypes.c_longlong
+        lib.tvl1_blocked_error_string.argtypes = [i32]
+        lib.tvl1_blocked_error_string.restype = ctypes.c_char_p
+        if lib.tvl1_blocked_max_k() != BLOCKED_K:
+            raise RuntimeError(
+                f"csrc/tvl1_blocked.cu allows k <= {lib.tvl1_blocked_max_k()}"
+                f", the wrapper expects {BLOCKED_K}"
+            )
+        _lib = lib
+    return _lib
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= BLOCKED_K:
+        raise ValueError(
+            f"k must be in 1..{BLOCKED_K} (the halo-extended tile must fit "
+            f"one block's shared memory), got {k}"
+        )
+
+
+def tvl1_blocked_level_solve_plain(
+    i0: torch.Tensor,  # (N, H, W) float32
+    i1: torch.Tensor,
+    u1: torch.Tensor,
+    u2: torch.Tensor,
+    params: TVL1Params,
+    k: int = BLOCKED_K,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`tvl1_blocked_level_solve`: the plain
+    level solve with the exit tested every ``k`` iterations on the last
+    iteration's error. With ``epsilon = 0`` it is the plain level solve."""
+    _check_inputs(i0, i1, u1, u2, params)
+    _check_k(k)
+    a, b, _, iters = level_solve_plain(i0, i1, u1, u2, params, exit_every=k)
+    return a, b, iters
+
+
+def tvl1_blocked_level_solve(
+    i0: torch.Tensor,  # (N, H, W) float32
+    i1: torch.Tensor,
+    u1: torch.Tensor,
+    u2: torch.Tensor,
+    params: TVL1Params,
+    k: int = BLOCKED_K,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Solve one pyramid level for a batch of images, ``k`` iterations per
+    trip to device memory.
+
+    ``params.warps`` sweeps, each a backward warp by the current flow and up
+    to ``params.iterations`` primal-dual updates in chunks of ``k``; with
+    ``params.epsilon > 0`` an image skips the rest of a sweep once the sum of
+    squared updates of a chunk's last iteration is ``<= epsilon^2 * H * W``
+    (never before a sweep's first chunk has run). Returns
+    ``(u1, u2, iters)``: the new flow and the iterations each image ran,
+    ``(N,)`` int32, summed over the sweeps.
+
+    CUDA tensors launch the kernel on the current stream without
+    synchronising (``tvl1_blocked_level_solve.launches`` counts these calls)
+    or raise; CPU tensors take the plain version."""
+    if not i0.is_cuda:
+        return tvl1_blocked_level_solve_plain(i0, i1, u1, u2, params, k)
+    _check_inputs(i0, i1, u1, u2, params)
+    _check_k(k)
+    lib = _library()
+    n, h, w = i0.shape
+    dev = i0.device
+    use_eps = params.epsilon > 0
+    thresh = params.epsilon * params.epsilon * h * w if use_eps else -1.0
+    warps, iterations = int(params.warps), int(params.iterations)
+    with torch.cuda.device(dev):
+        u1_out = torch.empty_like(u1)
+        u2_out = torch.empty_like(u2)
+        iters = torch.empty(n, dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            lib.tvl1_blocked_scratch_floats(n, h, w), dtype=torch.float32,
+            device=dev,
+        )
+        err = torch.empty(
+            lib.tvl1_blocked_err_floats(n, h, w, warps, iterations, k),
+            dtype=torch.float32, device=dev,
+        )
+        cur = torch.empty(2 * n, dtype=torch.int32, device=dev)
+        code = lib.tvl1_blocked_level_solve(
+            i0.data_ptr(), i1.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            u1_out.data_ptr(), u2_out.data_ptr(), iters.data_ptr(),
+            scratch.data_ptr(), err.data_ptr(), cur.data_ptr(),
+            n, h, w, warps, iterations, int(k),
+            float(params.lambda_ * params.theta), float(params.theta),
+            float(params.tau / params.theta), float(thresh),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if code != 0:
+        raise RuntimeError(
+            f"tvl1_blocked_level_solve: CUDA error {code}: "
+            f"{lib.tvl1_blocked_error_string(code).decode()}"
+        )
+    tvl1_blocked_level_solve.launches += 1
+    return u1_out, u2_out, iters
+
+
+tvl1_blocked_level_solve.launches = 0

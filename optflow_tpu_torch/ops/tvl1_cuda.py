@@ -1,6 +1,7 @@
 """The TV-L1 level solve on the GPU: wrapper of the hand-written CUDA kernel
 (``csrc/tvl1_level.cu``), its plain PyTorch version, and the coarse-to-fine
-solve that runs the kernel at every pyramid level.
+solve that runs a kernel at every pyramid level (this one, or the blocked
+kernel of ``ops/tvl1_blocked_cuda.py`` for the large levels).
 
 :func:`tvl1_level_solve` solves one whole level for a batch: given
 ``(i0, i1, u1, u2)`` it returns ``(u1, u2, iterations run per image)``. On a
@@ -144,8 +145,34 @@ def tvl1_level_solve(
 tvl1_level_solve.launches = 0
 
 
+# Padded pixels above which a level goes to the blocked kernel: the JAX
+# package's fused-kernel budget, _fused_px_budget(8) of
+# optflow_tpu/ops/tvl1_pallas.py:116 (int(110 MiB * 0.92) // 250 B per pixel),
+# kept so that the same levels take the counterpart kernels in both packages.
+# It is a size of the TPU's on-chip memory, not of this card.
+FUSED_PX_BUDGET = 424463
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def takes_blocked_kernel(h: int, w: int) -> bool:
+    """Whether an ``h x w`` level is solved by the blocked kernel
+    (ops/tvl1_blocked_cuda.py) rather than :func:`tvl1_level_solve`: the JAX
+    package's rule, on its padded canvas of 8 rows x 128 columns."""
+    return _round_up(h, 8) * _round_up(w, 128) > FUSED_PX_BUDGET
+
+
 def _kernel_level_solver(i0, i1, u1, u2, params, u3):
-    a, b, iters = tvl1_level_solve(i0, i1, u1, u2, params)
+    if takes_blocked_kernel(*i0.shape[-2:]):
+        from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
+            tvl1_blocked_level_solve,
+        )
+
+        a, b, iters = tvl1_blocked_level_solve(i0, i1, u1, u2, params)
+    else:
+        a, b, iters = tvl1_level_solve(i0, i1, u1, u2, params)
     return a, b, u3, iters
 
 
@@ -155,8 +182,9 @@ def tvl1_flow_batched_cuda(
     params: TVL1Params = TVL1Params(),
     init_flow: Optional[torch.Tensor] = None,  # (N, H, W, 2)
 ) -> torch.Tensor:
-    """Full coarse-to-fine TV-L1 flow of a batch with the level kernel at
-    every pyramid level. Nothing is read back inside the solve; the
-    per-level iteration counts are kept on the device
-    (``ops.tvl1.get_last_iteration_stats``)."""
+    """Full coarse-to-fine TV-L1 flow of a batch with a level kernel at
+    every pyramid level: the blocked kernel where
+    :func:`takes_blocked_kernel`, else :func:`tvl1_level_solve`. Nothing is
+    read back inside the solve; the per-level iteration counts are kept on
+    the device (``ops.tvl1.get_last_iteration_stats``)."""
     return solve_pyramid(i0s, i1s, params, init_flow, _kernel_level_solver)

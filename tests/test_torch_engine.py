@@ -312,3 +312,177 @@ def test_packed_payload_layout():
     assert len(pts) == 5  # without replacement
     empty = tdg.matches_from_samples(samples[0, 1], 0, Roi(0, 0, 6, 4), 2.0, False)
     assert empty["w"] == [0] and empty["p"] == [[-1], [-1]]
+
+
+# --- full-frame map / flow jobs and the prefetch loader ---------------------
+
+
+def _tiff_job(names, output_type, out_dir):
+    """4 pairs, one `custom` ROI over the whole scaled frame, TIFF output."""
+    job = _job(names, output_type=output_type, output_dir=str(out_dir),
+               rois={"custom": [0, 0, SRC_W // 2, SRC_H // 2]},
+               features=False, pair_batch=2, match_sink="null")
+    job["images"] = job["images"][:4]
+    return job
+
+
+@pytest.mark.parametrize("output_type", ["map", "flow"])
+def test_tiff_jobs_equal_the_jax_package(frames, tmp_path, output_type):
+    """The slice as a whole: a 4-pair style-1 job with a `custom` ROI and
+    `map` or `flow` output through both packages' run_job_batched. Same
+    file names; fields within 0.02 px of each other (the tolerance of the
+    whole-pyramid comparison) and, away from the border, within 0.5 px of
+    the known shift."""
+    from optflow_tpu_torch.core.imgio import read_float_tiff
+
+    names = sorted(frames)
+    pjob = _tiff_job(names, output_type, tmp_path / "port")
+    jjob = _tiff_job(names, output_type, tmp_path / "jax")
+    ps = tbr.run_job_batched(
+        pjob, loader=lambda p, s: frames[p], device="cpu")
+    js = jbr.run_job_batched(
+        jjob, loader=lambda p, s: frames[p],
+        mesh=make_pair_mesh(n_pairs_axis=1, n_rows_axis=1),
+    )
+    for key in ("pairs", "batched", "sequential", "uploads", "matches"):
+        assert ps[key] == js[key], key
+    assert ps["pairs"] == ps["batched"] == 4 and ps["uploads"] == 0
+    pfiles = sorted(f.name for f in (tmp_path / "port").iterdir())
+    assert pfiles == sorted(f.name for f in (tmp_path / "jax").iterdir())
+    assert pfiles == sorted(
+        f"{im['output_name']}_0.50_{c}.tiff"
+        for im in pjob["images"] for c in "xy"
+    )
+    h, w = SRC_H // 2, SRC_W // 2
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    for im in pjob["images"]:
+        got, want = (
+            [read_float_tiff(str(tmp_path / side /
+                                 f"{im['output_name']}_0.50_{c}.tiff"))
+             for c in "xy"]
+            for side in ("port", "jax")
+        )
+        assert got[0].shape == (h, w)
+        assert np.abs(got[0] - want[0]).max() <= 0.02
+        assert np.abs(got[1] - want[1]).max() <= 0.02
+        fx, fy = got
+        if output_type == "map":
+            fx, fy = fx - xs, fy - ys
+        err = np.hypot(fx - im["dz"] * DX_STEP * SCALE,
+                       fy - im["dz"] * DY_STEP * SCALE)
+        assert err[8:-8, 8:-8].mean() <= 0.5
+
+
+def test_stage_timer_device_stage_is_a_plain_stage_on_the_cpu(port_run):
+    """The CUDA-event bracket needs a CUDA device; on the CPU the runner's
+    stages are host-clock stages and no `_device_s` key appears."""
+    from optflow_tpu_torch.utils.metrics import StageTimer
+
+    timer = StageTimer()
+    with timer.device_stage("solve", "cpu"):
+        pass
+    timer.read_device_events()
+    out = timer.summary(1)
+    assert "solve_s" in out and not any(k.endswith("_device_s") for k in out)
+    timing = port_run[2]["timing"]
+    assert {"solve_s", "h2d_s", "sample_s"} <= set(timing)
+    assert not any(k.endswith("_device_s") for k in timing)
+
+
+def _write_pngs(tmp_path, n):
+    import cv2
+
+    rng = np.random.default_rng(5)
+    paths = []
+    for k in range(n):
+        im = ndi.gaussian_filter(rng.standard_normal((64, 96)), 2.0)
+        im = (20 + 215 * (im - im.min()) / np.ptp(im)).astype(np.uint8)
+        path = str(tmp_path / f"sec_{k}.png")
+        assert cv2.imwrite(path, im)
+        paths.append(path)
+    return paths
+
+
+def test_prefetch_loader_matches_the_jax_package(tmp_path):
+    """PrefetchLoader against the JAX package's on the same PNG files: the
+    same frames in the same order (within one gray level: that package
+    decodes and resizes with its own native code, this one with cv2), the
+    same array object for a repeated key while it is cached, a new one once
+    it has been evicted, and close() leaves no thread behind."""
+    import threading
+
+    from optflow_tpu.engine.prefetch import PrefetchLoader as JaxPrefetch
+    from optflow_tpu.native import available
+    from optflow_tpu_torch.engine.prefetch import PrefetchLoader
+
+    assert available(), "the JAX package's native loader did not build"
+    paths = _write_pngs(tmp_path, 5)
+    order = [0, 1, 1, 2, 0, 3, 4, 1]
+    schedule = [(paths[k], 0.5) for k in order]
+    port = PrefetchLoader(schedule, lookahead=3, n_threads=2, cache_frames=3)
+    ref = JaxPrefetch(schedule, lookahead=3, n_threads=2, cache_frames=3)
+    got, want = [], []
+    for path, scale in schedule:
+        got.append(port(path, scale))
+        want.append(ref(path, scale))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape == (32, 48)
+        assert np.abs(a - b).max() <= 1.0
+    for frames_ in (got, want):
+        assert frames_[2] is frames_[1]  # cache hit: the same object
+        assert frames_[4] is frames_[0]  # still cached after 3 distinct keys
+        # the hit refreshed frame 0; frame 1 was the oldest when 4 came in
+        assert frames_[7] is not frames_[1]  # evicted by then: decoded anew
+        assert np.array_equal(frames_[7], frames_[1])
+    # a key that was never scheduled is decoded on demand
+    extra = port(paths[2], 1.0)
+    assert extra.shape == (64, 96)
+    port.close()
+    ref.close()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("optflow-decode")]
+
+
+def test_prefetch_is_wired_into_the_runners(tmp_path, monkeypatch):
+    """Without a caller's loader the runners decode through a PrefetchLoader
+    built from the job's schedule and close it; `prefetch: false` and a
+    caller's loader leave it out; a missing file is skipped as before."""
+    from optflow_tpu_torch.engine import prefetch as tpf
+    from optflow_tpu_torch.engine import runner as trn
+
+    paths = _write_pngs(tmp_path, 3)
+    made = []
+    real = tpf.make_prefetch_loader
+
+    def spy(args):
+        made.append(real(args))
+        return made[-1]
+
+    monkeypatch.setattr(tbr, "make_prefetch_loader", spy)
+    monkeypatch.setattr(trn, "make_prefetch_loader", spy)
+
+    def job(**kw):
+        return {
+            "style": 1, "scale": 1.0, "output_type": "flow",
+            "output_dir": str(tmp_path / "out"), "match_sink": "null",
+            "rois": {"custom": [0, 0, 96, 64]}, "features": False,
+            "nscales": 2, "warps": 1, "iterations": 5,
+            "images": [
+                {"p": paths[0], "q": paths[1], "output_name": "a"},
+                {"p": paths[1], "q": str(tmp_path / "missing.png"),
+                 "output_name": "b"},
+                {"p": paths[1], "q": paths[2], "output_name": "c"},
+            ], **kw,
+        }
+
+    stats = tbr.run_job_batched(job(pair_batch=2), device="cpu")
+    assert (stats["pairs"], stats["skipped"]) == (2, 1)
+    stats = trn.run_job(job(), device="cpu")
+    assert (stats["pairs"], stats["skipped"]) == (2, 1)
+    assert len(made) == 2 and all(m is not None for m in made)
+    assert all(m._pool._shutdown for m in made)  # closed by the runner
+    assert (tmp_path / "out" / "c_1.00_x.tiff").exists()
+    tbr.run_job_batched(job(pair_batch=2, prefetch=False), device="cpu")
+    trn.run_job(job(), device="cpu", loader=tbr.FrameCache()._loader)
+    assert len(made) == 2
+    assert tpf.make_prefetch_loader({"images": []}) is None

@@ -17,7 +17,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch\n"
         "import optflow_tpu_torch.cli.main\n"
         "import optflow_tpu_torch.engine.batch_runner\n"
+        "import optflow_tpu_torch.engine.prefetch\n"
         "import optflow_tpu_torch.ops.tvl1_cuda\n"
+        "import optflow_tpu_torch.ops.tvl1_blocked_cuda\n"
+        "import optflow_tpu_torch.ops.tvl1_chunk_cuda\n"
         "import optflow_tpu_torch.convert\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'optflow_tpu' or "
@@ -44,9 +47,43 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "optflow_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.name for f in files}
+    assert {"tvl1_blocked_cuda.py", "tvl1_chunk_cuda.py", "prefetch.py"} <= names
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_kernel_sources_are_cuda_sources_of_this_package():
+    """Every kernel chip_smoke.py lists is built from a .cu file under the
+    package's csrc/, which names the TPU kernel it replaces."""
+    csrc = ROOT / "optflow_tpu_torch" / "csrc"
+    stems = sorted(f.stem for f in csrc.glob("*.cu"))
+    assert stems == ["tvl1_blocked", "tvl1_chunk", "tvl1_level"]
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    for stem, body in (("tvl1_blocked", "_make_blocked_kernel"),
+                       ("tvl1_chunk", "_make_kernel"),
+                       ("tvl1_level", "_make_fused_kernel")):
+        text = (csrc / f"{stem}.cu").read_text()
+        assert body in text and "tvl1_common.cuh" in text
+        assert f"optflow_tpu_torch/csrc/{stem}.cu" in smoke
+        assert "torch/extension.h" not in text  # plain C interface, ctypes
+
+
+def test_entry_points_default_to_the_gpu():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from optflow_tpu_torch import convert
+    from optflow_tpu_torch.cli import main as cli
+    from optflow_tpu_torch.engine import batch_runner, pair, runner
+
+    for fn in (batch_runner.run_job_batched, runner.run_job, pair.solve_rois,
+               pair.solve_wrapper, convert.level_state_from_numpy,
+               convert.flow_from_numpy, convert.canvas_to_tensor):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__name__
+    assert 'default="cuda"' in inspect.getsource(cli.main)
 
 
 def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
