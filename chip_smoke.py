@@ -12,7 +12,11 @@ PyTorch version on the card:
   (1024x2048 sections at scale 0.5): the blocked level kernel at the levels
   above the fused budget;
 - the per-level API, ``tvl1_flow(level_solver=default_level_solver(...))``:
-  the chunk kernel.
+  the chunk kernel;
+- the two measurement tools, ``tools.kernel_ablate`` and ``tools.smem_cap``:
+  the ablation kernel and the shared-memory capacity probe;
+- style-1 jobs with feature pre-alignment (plain PyTorch on the card; the
+  solve under it is the level kernel's).
 
 Needs no file from outside the repository and no network: frames are
 synthesised from a seed.
@@ -23,10 +27,17 @@ synthesised from a seed.
 Phases, one JSON line each; any failure ends the run with a non-zero code:
 
   device   a CUDA device must be present (never carries on on the CPU)
-  build    compile (one nvcc per source, together) and load the three
+  build    compile (one nvcc per source, together) and load the five
            kernel libraries from optflow_tpu_torch/csrc
   kernels  each kernel against its plain version on the card, with
-           tolerances; the blocked kernel also against the level kernel
+           tolerances; the blocked kernel also against the level kernel,
+           the ablation kernel's `full` variant against the chunk kernel
+           (bit for bit), the capacity probe at every size up to the
+           card's limit and one above it
+  ablate   the ablation tool at (16, 256, 1024): microseconds per iteration
+           of the six variants of the TV-L1 iteration
+  smem_cap the capacity probe's table: sizes granted, occupancy, and the
+           shared-memory constants the kernels rest on
   solve    tvl1_flow_batched at (16, 256, 1024), both EPE gates; then a
            `levels` line: per-level kernel times of a 32-image solve
   job      64 pairs through run_job_batched, match gate, launch count
@@ -37,6 +48,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            of 8 full-section pairs and a `flow` job of 2 through
            run_job_batched, TIFFs written, read back and gated
   level_api  tvl1_flow with the chunk-kernel level solver at 512x1024
+  features feature pre-alignment: the frame-deduplicated aligner on a
+           chained stack of 17 strips with known affines (stage times), a
+           job of 32 misaligned strip pairs with features on through
+           run_job_batched, 16 pairs (two with the `default` ROI) through
+           the CLI, and identical / flat frames
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 every kernel's launches on the main path, its error against the plain
@@ -61,8 +77,10 @@ import time
 
 import numpy as np
 
-ALL_PHASES = ("device", "build", "kernels", "solve", "job", "cli", "section",
-              "level_api")
+ALL_PHASES = ("device", "build", "kernels", "ablate", "smem_cap", "solve",
+              "job", "cli", "section", "level_api", "features")
+KERNEL_STEMS = ("tvl1_level", "tvl1_blocked", "tvl1_chunk", "tvl1_ablate",
+                "smem_cap")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and float32 rate outside the tensor cores
@@ -119,7 +137,18 @@ KERNELS = {
         "source": "optflow_tpu_torch/csrc/tvl1_chunk.cu",
         "replaces": "optflow_tpu/ops/tvl1_pallas.py:1250",
     },
+    "tvl1_ablate_chunks": {
+        "source": "optflow_tpu_torch/csrc/tvl1_ablate.cu",
+        "replaces": "tools_kernel_ablate.py:39",
+    },
+    "smem_fill_mean": {
+        "source": "optflow_tpu_torch/csrc/smem_cap.cu",
+        "replaces": "tools/probes/r4_vmem_cap.py:20",
+    },
 }
+# One multiprocessor's shared memory moves 32 banks x 4 B a clock; the clock
+# is the one the CUDA runtime reports for the card (cudaDevAttrClockRate).
+SMEM_BYTES_PER_CLOCK = 128
 
 # solve phase: the JAX bench's pair generator and truth
 SOLVE_H, SOLVE_W, SOLVE_BATCH = 256, 1024, 16
@@ -255,12 +284,16 @@ def kernel_wrappers():
     from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
         tvl1_blocked_level_solve,
     )
+    from optflow_tpu_torch.ops.smem_cap_cuda import smem_fill_mean
+    from optflow_tpu_torch.ops.tvl1_ablate_cuda import tvl1_ablate_chunks
     from optflow_tpu_torch.ops.tvl1_chunk_cuda import tvl1_chunk
     from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
 
     return {"tvl1_level_solve": tvl1_level_solve,
             "tvl1_blocked_level_solve": tvl1_blocked_level_solve,
-            "tvl1_chunk": tvl1_chunk}
+            "tvl1_chunk": tvl1_chunk,
+            "tvl1_ablate_chunks": tvl1_ablate_chunks,
+            "smem_fill_mean": smem_fill_mean}
 
 
 def zero_launch_counts():
@@ -305,15 +338,18 @@ def gpu_name_and_limit() -> str:
 def phase_build():
     from optflow_tpu_torch.ops import (
         _build,
+        smem_cap_cuda,
+        tvl1_ablate_cuda,
         tvl1_blocked_cuda,
         tvl1_chunk_cuda,
         tvl1_cuda,
     )
 
-    stems = ("tvl1_level", "tvl1_blocked", "tvl1_chunk")
+    stems = KERNEL_STEMS
     t0 = time.perf_counter()
     _build.build_libraries(stems)  # one nvcc per source, started together
-    for mod in (tvl1_cuda, tvl1_blocked_cuda, tvl1_chunk_cuda):
+    for mod in (tvl1_cuda, tvl1_blocked_cuda, tvl1_chunk_cuda,
+                tvl1_ablate_cuda, smem_cap_cuda):
         mod._library()
     secs = time.perf_counter() - t0
     libs = {}
@@ -336,6 +372,8 @@ def phase_kernels(results):
         "tvl1_level_solve": kernels_level(),
         "tvl1_blocked_level_solve": kernels_blocked(),
         "tvl1_chunk": kernels_chunk(),
+        "tvl1_ablate_chunks": kernels_ablate(),
+        "smem_fill_mean": kernels_smem(),
     }
 
 
@@ -706,6 +744,255 @@ def kernels_chunk():
         fail("an image left its loop above the threshold")
     return main_case
 
+def kernels_ablate():
+    """The ablation kernel (csrc/tvl1_ablate.cu): each of the six variants
+    against its plain version, and `full` against the chunk kernel with the
+    exit disabled, which it must equal bit for bit."""
+    import torch
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops.tvl1_ablate_cuda import (
+        ABLATE_K,
+        VARIANTS,
+        launches_per_call,
+        tvl1_ablate_chunks,
+        tvl1_ablate_plain,
+    )
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import chunk_geometry, tvl1_chunk
+    from optflow_tpu_torch.tools.kernel_ablate import make_inputs
+
+    dev = torch.device("cuda")
+    n, h, w = 4, 256, 1024
+    ro, state = make_inputs(n, h, w, dev)  # the tool's inputs, from a seed
+    # Same float32 arithmetic in another order (FMA contraction, the block
+    # sums), 16 iterations on values of order 1: as for the chunk kernel.
+    tol = 1e-4
+    cases = []
+    main_case = None
+    for name, flags in VARIANTS.items():
+        # Without its divisions the iteration is no contraction: no_div
+        # leaves the finite numbers within a few steps, and min_body stays
+        # bounded but amplifies the last-bit differences between kernel and
+        # plain version (8e-5 after 2 steps, 1.0 after 16 at 0.02 % of the
+        # positions on an H100: `m16_max_abs_du` below). Both are compared
+        # after 2.
+        m = 16 if flags["div"] else 2
+        before = tvl1_ablate_chunks.launches
+        ks, ke = tvl1_ablate_chunks(ro, state, m, h, w, **flags)
+        torch.cuda.synchronize()
+        if tvl1_ablate_chunks.launches != before + 1:
+            fail("the ablation wrapper did not count its launch")
+        ps, pe = tvl1_ablate_plain(ro, state, m, h, w, **flags)
+        finite = bool(torch.isfinite(ks).all() and torch.isfinite(ps).all())
+        # without divisions the values reach 30 (min_body) to 1e5 (no_div)
+        # after two steps, from sums that cancel: the difference is taken
+        # relative to the largest value
+        scale = 1.0 if flags["div"] else float(ps.abs().max())
+        diff = max_abs_diff(ks, ps) / scale
+        err_rel = float(((ke - pe).abs() / pe.abs().clamp(min=1e-12)).max())
+        ms = time_cuda(
+            lambda: tvl1_ablate_chunks(ro, state, m, h, w, **flags), 5)
+        plain_ms = time_cuda(
+            lambda: tvl1_ablate_plain(ro, state, m, h, w, **flags), 2)
+        bound, bound_by = chunk_bound_ms(n, h, w, 1, n * m)
+        case = {
+            "kernel": "tvl1_ablate_chunks", "variant": name,
+            "shape": [n, h, w], "m": m, "max_abs_du": diff, "tolerance": tol,
+            "relative_to": scale, "errs_max_rel": err_rel,
+            "errs_tolerance": 1e-3, "errs": ke.flatten().tolist(),
+            "state_moved": max_abs_diff(ks, state),
+            "device_launches": launches_per_call(m) + 1,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by,
+        }
+        cases.append(case)
+        if not (finite and diff <= tol and err_rel <= 1e-3):
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"ablation kernel, variant {name}: finite {finite}, state "
+                 f"differs by {diff} (tolerance {tol}), errors by {err_rel}")
+        if not case["state_moved"] > 1e-3:
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"ablation kernel, variant {name}: the state did not move")
+        if not flags["err"] and ke.flatten().tolist() != [1.0] * n:
+            fail(f"variant {name} has no error sum and must return ones")
+        if name == "full":
+            main_case = case
+        if name == "min_body":
+            # reported, not gated: how far the two have drifted after 16
+            ks, _ = tvl1_ablate_chunks(ro, state, 16, h, w, **flags)
+            ps, _ = tvl1_ablate_plain(ro, state, 16, h, w, **flags)
+            drift = (ks - ps).abs()
+            case["m16_max_abs_du"] = float(drift.max())
+            case["m16_share_above_1e-3"] = float((drift > 1e-3).float().mean())
+        if name == "no_div":
+            # at the count of the others the state has left the finite
+            # numbers: kernel and plain version must agree on where
+            ks, _ = tvl1_ablate_chunks(ro, state, 16, h, w, **flags)
+            ps, _ = tvl1_ablate_plain(ro, state, 16, h, w, **flags)
+            same = float((torch.isfinite(ks) == torch.isfinite(ps))
+                         .float().mean())
+            case["m16_finite_share"] = float(torch.isfinite(ks).float().mean())
+            case["m16_finiteness_agrees_share"] = same
+            if not same >= 0.99:
+                emit({"phase": "kernels", "cases": cases})
+                fail(f"no_div at m = 16: kernel and plain version agree on "
+                     f"finiteness at only {same} of the positions")
+
+    # `full` is the chunk kernel's tile mode with the exit disabled: two
+    # chunks of 8 there, one call of 16 here, not one bit apart
+    if chunk_geometry(h, w).one_block:
+        fail(f"{h} x {w} was expected to run in tiles")
+    params = TVL1Params(nscales=1)
+    cs = state
+    for _ in range(16 // ABLATE_K):
+        cs, ce = tvl1_chunk(ro, cs, ABLATE_K, -1.0, params)
+    fs, fe = tvl1_ablate_chunks(ro, state, 16, h, w, **VARIANTS["full"])
+    torch.cuda.synchronize()
+    vs_chunk = max_abs_diff(fs, cs)
+    errs_vs_chunk = float(
+        ((fe[:, 0] - ce.sum(1)).abs() / ce.sum(1).abs()).max())
+    # the last launch of a call is the short one: m = 50 ends on 2
+    ls, _ = tvl1_ablate_chunks(ro, state, 50, h, w, **VARIANTS["full"])
+    cs = state
+    for m in (8,) * 6 + (2,):
+        cs, _ = tvl1_chunk(ro, cs, m, -1.0, params)
+    torch.cuda.synchronize()
+    vs_chunk_50 = max_abs_diff(ls, cs)
+    main_case.update({"max_abs_vs_chunk_kernel": vs_chunk,
+                      "max_abs_vs_chunk_kernel_m50": vs_chunk_50,
+                      "errs_rel_vs_chunk_kernel": errs_vs_chunk})
+    emit({"phase": "kernels", "cases": cases})
+    if vs_chunk != 0.0 or vs_chunk_50 != 0.0:
+        fail(f"ablation variant `full` differs from the chunk kernel by "
+             f"{vs_chunk} (m = 16) and {vs_chunk_50} (m = 50): it must be "
+             f"the same arithmetic, bit for bit")
+    if not errs_vs_chunk <= 1e-5:
+        fail(f"`full` error sums differ from the chunk kernel's by "
+             f"{errs_vs_chunk}")
+    return main_case
+
+
+def smem_bound_ms(n_bytes, clock_khz):
+    """Least time for the probe: n_bytes written and read once by one
+    multiprocessor's shared memory."""
+    return 2 * n_bytes / (SMEM_BYTES_PER_CLOCK * clock_khz * 1e3) * 1e3
+
+
+def kernels_smem():
+    """The capacity probe (csrc/smem_cap.cu) against its plain version:
+    every size up to the card's opt-in limit runs and returns the mean,
+    every size above it is refused, and the largest that ran is the limit."""
+    import torch
+
+    from optflow_tpu_torch.ops.smem_cap_cuda import (
+        device_shared_memory,
+        error_string,
+        smem_fill_mean,
+        smem_fill_mean_plain,
+    )
+    from optflow_tpu_torch.tools.smem_cap import SIZES_KIB
+
+    dev = torch.device("cuda")
+    attrs = device_shared_memory(dev)
+    x = torch.full((1,), 2.75, dtype=torch.float32, device=dev)
+    sizes = sorted({k * 1024 for k in SIZES_KIB} | {attrs.optin_per_block})
+    rows = []
+    largest = 0
+    worst = 0.0
+    for n_bytes in sizes:
+        before = smem_fill_mean.launches
+        status, means = smem_fill_mean(n_bytes, x)
+        expect_ok = n_bytes <= attrs.optin_per_block
+        row = {"bytes": n_bytes, "ok": status.ok, "status": list(status)}
+        if status.ok:
+            _, plain = smem_fill_mean_plain(n_bytes, x)
+            row["abs_err"] = max_abs_diff(means, plain)
+            worst = max(worst, row["abs_err"])
+            largest = max(largest, n_bytes)
+            if smem_fill_mean.launches != before + 1:
+                fail("the probe's wrapper did not count its launch")
+        else:
+            row["refused_by"] = error_string(status.attribute or status.launch)
+        rows.append(row)
+        if status.ok != expect_ok:
+            emit({"phase": "kernels", "cases": rows})
+            fail(f"probe at {n_bytes} B: ran {status.ok}, expected "
+                 f"{expect_ok} (opt-in limit {attrs.optin_per_block} B)")
+        if status.ok and not row["abs_err"] <= 1e-6:
+            emit({"phase": "kernels", "cases": rows})
+            fail(f"probe at {n_bytes} B: mean off by {row['abs_err']}")
+    n_bytes = attrs.optin_per_block
+    ms = time_cuda(lambda: smem_fill_mean(n_bytes, x), 20)
+    plain_ms = time_cuda(lambda: smem_fill_mean_plain(n_bytes, x), 20)
+    case = {
+        "kernel": "smem_fill_mean", "shape": [n_bytes // 4],
+        "max_abs_du": worst, "tolerance": 1e-6,
+        "largest_ok_bytes": largest, "attrs": attrs._asdict(),
+        "sizes": rows, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": smem_bound_ms(n_bytes, attrs.clock_khz),
+        "bound_by": "bytes",
+    }
+    emit({"phase": "kernels", "cases": [case]})
+    if largest != attrs.optin_per_block:
+        fail(f"the largest size that ran, {largest} B, is not the card's "
+             f"opt-in limit {attrs.optin_per_block} B")
+    return case
+
+
+def phase_ablate(results):
+    """The ablation tool at its defaults: what each class of cost is worth
+    per iteration on this card."""
+    import math
+
+    from optflow_tpu_torch.tools.kernel_ablate import run_ablation
+
+    zero_launch_counts()  # a main path of its kernel
+    t0 = time.perf_counter()
+    rows = run_ablation(16, 256, 1024, 50, 600, "cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launch_counts()["tvl1_ablate_chunks"]
+    slopes = {r["name"]: r["slope_us_per_iter"] for r in rows}
+    emit({"phase": "ablate", "shape": [16, 256, 1024], "lo": 50, "hi": 600,
+          "slope_us_per_iter": slopes,
+          "g_px_iter_per_s": {r["name"]: r["g_px_iter_per_s"] for r in rows},
+          "t_lo_ms": {r["name"]: r["t_lo_ms"] for r in rows},
+          "t_hi_ms": {r["name"]: r["t_hi_ms"] for r in rows},
+          "device_launches_lo_hi": [rows[0]["launches_lo"],
+                                    rows[0]["launches_hi"]],
+          "launches": launches, "wall_s": wall})
+    if not all(math.isfinite(v) and v > 0 for v in slopes.values()):
+        fail(f"ablation slopes must be finite and positive: {slopes}")
+    if not slopes["min_body"] <= slopes["full"]:
+        fail(f"min_body ({slopes['min_body']} us/iter) is slower than full "
+             f"({slopes['full']})")
+    if launches < 1:
+        fail("the ablation tool did not launch its kernel")
+    results.setdefault("launches", {})["tvl1_ablate_chunks"] = launches
+
+
+def phase_smem_cap(results):
+    """The capacity probe's table, and the port's constants against it."""
+    from optflow_tpu_torch.tools.smem_cap import run_probe
+
+    zero_launch_counts()  # a main path of its kernel
+    table = run_probe("cuda")
+    launches = read_launch_counts()["smem_fill_mean"]
+    emit({"phase": "smem_cap", **table, "launches": launches})
+    optin = table["attrs"]["optin_per_block"]
+    for r in table["sizes"]:
+        if r["ok"] != (r["bytes"] <= optin):
+            fail(f"smem_cap: {r['kib']} KiB ran {r['ok']}, the opt-in limit "
+                 f"is {optin} B")
+        if r["ok"] and not (r["resident"] and r["one_more_refused"]):
+            fail(f"smem_cap: at {r['kib']} KiB the reported occupancy "
+                 f"{r['occupancy']} does not hold: {r}")
+    if not (table["blocked_window_fits"] and table["chunk_one_block_fits"]):
+        fail(f"a kernel's shared-memory constant exceeds the largest size "
+             f"that ran, {table['largest_ok_bytes']} B")
+    if launches < 1:
+        fail("the probe tool did not launch its kernel")
+    results.setdefault("launches", {})["smem_fill_mean"] = launches
+
 
 def phase_solve():
     import torch
@@ -989,6 +1276,51 @@ def phase_job(results, tmp):
     results["sections"] = sections
 
 
+def write_pngs(sections, folder, decoder):
+    """Write uint8 sections as PNG files; returns their paths."""
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for z, section in enumerate(sections):
+        path = os.path.join(folder, f"sec_{z:04d}.png")
+        if decoder == "cv2":
+            import cv2
+
+            if not cv2.imwrite(path, section):
+                fail(f"could not write {path}")
+        else:
+            from PIL import Image
+
+            Image.fromarray(section).save(path)
+        paths.append(path)
+    return paths
+
+
+def run_cli(job, tmp, tag, extra_args=()):
+    """Run ``job`` through the CLI in a new process with the JSON-lines
+    sink. Returns (finished process, match sets, wall seconds); fails the
+    run unless the exit code is 0."""
+    out = os.path.join(tmp, f"{tag}_matches.jsonl")
+    job["match_sink"] = "jsonl"
+    job["match_output"] = out
+    job_path = os.path.join(tmp, f"{tag}.json.gz")
+    with gzip.open(job_path, "wb") as f:
+        f.write(json.dumps(job).encode("utf-8"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "optflow_tpu_torch.cli.main", job_path,
+         *extra_args],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+        fail(f"the CLI exited with code {proc.returncode}")
+    with open(out) as f:
+        match_sets = [json.loads(line) for line in f if line.strip()]
+    return proc, match_sets, wall
+
+
 def phase_cli(results, tmp):
     from optflow_tpu_torch.core import imgio
 
@@ -999,40 +1331,10 @@ def phase_cli(results, tmp):
     n_pairs = 16
     n_frames = n_pairs // MAX_DZ + MAX_DZ + 1
     sections = results.get("sections") or synth_stack(n_frames)
-    stack = os.path.join(tmp, "stack")
-    os.makedirs(stack, exist_ok=True)
-    names = []
-    for z in range(n_frames):
-        path = os.path.join(stack, f"sec_{z:04d}.png")
-        if decoder == "cv2":
-            import cv2
-
-            if not cv2.imwrite(path, sections[z]):
-                fail(f"could not write {path}")
-        else:
-            from PIL import Image
-
-            Image.fromarray(sections[z]).save(path)
-        names.append(path)
+    names = write_pngs(sections[:n_frames], os.path.join(tmp, "stack"),
+                       decoder)
     job = build_job(names, n_pairs, os.path.join(tmp, "cli.journal"), "cli")
-    out = os.path.join(tmp, "cli_matches.jsonl")
-    job["match_sink"] = "jsonl"
-    job["match_output"] = out
-    job_path = os.path.join(tmp, "job.json.gz")
-    with gzip.open(job_path, "wb") as f:
-        f.write(json.dumps(job).encode("utf-8"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "optflow_tpu_torch.cli.main", job_path],
-        capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-    )
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
-        fail(f"the CLI exited with code {proc.returncode}")
-    with open(out) as f:
-        match_sets = [json.loads(line) for line in f if line.strip()]
+    proc, match_sets, wall = run_cli(job, tmp, "cli")
     err, n_matches = gate_matches(match_sets, job)
     last_line = proc.stdout.strip().splitlines()[-1]
     # the CLI's own count of level-kernel launches, from its `done:` line:
@@ -1242,6 +1544,351 @@ def phase_level_api(results):
     results.setdefault("launches", {})["tvl1_chunk"] = counts["tvl1_chunk"]
 
 
+# --------------------------------------------------------------------------
+# features: pre-alignment end to end
+# --------------------------------------------------------------------------
+
+
+def rigid(theta, tx, ty, cx, cy):
+    """3x3 rotation by ``theta`` about (cx, cy) followed by a shift."""
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, s, cx - c * cx - s * cy + tx],
+                     [-s, c, cy + s * cx - c * cy + ty],
+                     [0.0, 0.0, 1.0]])
+
+
+def render_frames(tex, mats, h, w):
+    """frame_k(p) = tex(C_k p) for each 3x3 ``C_k`` (x, y order), cubic."""
+    import scipy.ndimage as ndi
+
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    frames = []
+    for c in mats:
+        sx = c[0, 0] * xs + c[0, 1] * ys + c[0, 2]
+        sy = c[1, 0] * xs + c[1, 1] * ys + c[1, 2]
+        frames.append(ndi.map_coordinates(tex, [sy, sx], order=3,
+                                          mode="nearest"))
+    return frames
+
+
+def chained_strip_stack(n_frames, h=SOLVE_H, w=SOLVE_W, seed=5, pad=128):
+    """A chained stack of strips with a KNOWN affine per consecutive pair, as
+    the JAX package's feature bench makes its pairs: frame k+1 is frame k
+    seen through a small rigid motion M_k (rotation <= 0.5 degrees about the
+    centre, translation <= 6 px), every frame rendered from one texture.
+    Returns (frames (n, h, w) float32, M (n-1, 2, 3)): M_k maps frame k+1's
+    coordinates into frame k's, what find_alignment(frame k+1, frame k)
+    should recover."""
+    rng = np.random.default_rng(seed)
+    tex, _ = make_pair(h + 2 * pad, w + 2 * pad, 0.0, 0.0, seed=seed)
+    cum = np.eye(3)
+    cum[:2, 2] = pad
+    mats, rel = [cum], []
+    for _ in range(n_frames - 1):
+        m = rigid(np.deg2rad(rng.uniform(-0.5, 0.5)), rng.uniform(-6, 6),
+                  rng.uniform(-6, 6), w / 2, h / 2)
+        rel.append(m[:2])
+        mats.append(mats[-1] @ m)
+    frames = render_frames(tex.astype(np.float64), mats, h, w)
+    return (np.stack(frames).astype(np.float32), np.stack(rel))
+
+
+def misaligned_sections(n_frames, seed=13):
+    """uint8 sections as :func:`synth_stack` makes them (the same per-z
+    shift), each also shifted (<= 3 full-res px) and slightly rotated
+    (<= 0.02 degrees about its centre) on its own, so a pair differs by up
+    to 6 px beside its z shift. The rotation is kept small on purpose: the
+    reference resamples a strip's ROI-LOCAL map with the FULL-FRAME affine
+    (src/optflow.cpp:429-432, kept by both packages for output parity), so
+    a rotation theta displaces the matches of a strip that starts at row y
+    by theta * y; 0.5 degrees would cost the bottom strip 4 px. Returns
+    (sections, C): section z shows the texture at C_z p (3x3, full-res
+    x, y)."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    pad_h = int(abs(DY_STEP) * n_frames) + 48
+    pad_w = int(abs(DX_STEP) * n_frames) + 48
+    big_h, big_w = SRC_H + pad_h, SRC_W + pad_w
+    base = ndi.gaussian_filter(rng.standard_normal((big_h, big_w)), 4.0)
+    lowf = ndi.gaussian_filter(rng.standard_normal((big_h, big_w)), 36.0)
+    tex = base * 2.0 + lowf * 4.0
+    tex = 20.0 + 215.0 * (tex - tex.min()) / (np.ptp(tex) + 1e-9)
+    mats = []
+    for z in range(n_frames):
+        c = rigid(np.deg2rad(rng.uniform(-0.02, 0.02)), rng.uniform(-3, 3),
+                  rng.uniform(-3, 3), SRC_W / 2, SRC_H / 2)
+        c[0, 2] += pad_w / 2 - DX_STEP * (z - n_frames / 2)
+        c[1, 2] += pad_h / 2 - DY_STEP * (z - n_frames / 2)
+        mats.append(c)
+    sections = [
+        np.clip(f + rng.normal(0.0, 1.5, f.shape), 0, 255).astype(np.uint8)
+        for f in render_frames(tex, mats, SRC_H, SRC_W)
+    ]
+    return sections, mats
+
+
+def gate_matches_rigid(match_sets, job, mats, margin=32):
+    """Distance, full-res px, of every emitted q from where the known motion
+    puts p: q_true = C_q^-1 C_p p. Returns (mean over the interior samples,
+    their count, count of all samples, median over all samples).
+
+    With features on, the emitted map is resampled by the pair's affine with
+    a constant border (cv::warpAffine): a sample within a few pixels of its
+    ROI's border reads the fill value and lands far off, in the reference as
+    here. The gate is over the samples at least ``margin`` full-res px
+    inside their ROI; the others are counted and reported."""
+    inv_scale = 1.0 / SCALE
+    errs, inner = [], []
+    for ms, im in zip(match_sets, job["images"]):
+        if (ms["pId"], ms["qId"]) != (im["pId"], im["qId"]):
+            fail("match sets are not in the job's order")
+        m = ms["matches"]
+        if not m["w"] or max(m["w"]) == 0:
+            continue
+        p = np.asarray(m["p"], np.float64)
+        q = np.asarray(m["q"], np.float64)
+        t = np.linalg.inv(mats[im["z1"]]) @ mats[im["z0"]]
+        truth = t[:2, :2] @ p + t[:2, 2:3]
+        errs.append(np.hypot(*(q - truth)))
+        rois = im.get("rois", job.get("rois"))
+        bands = [(0, SRC_H)] if rois is None else [
+            (0, rois["top"] * inv_scale),
+            (SRC_H - rois["bottom"] * inv_scale, SRC_H)]
+        in_band = np.zeros(p.shape[1], bool)
+        for lo, hi in bands:
+            in_band |= (p[1] >= lo + margin) & (p[1] < hi - margin)
+        inner.append(in_band & (p[0] >= margin) & (p[0] < SRC_W - margin))
+    if not errs:
+        return None, 0, 0, None
+    allerr, inner = np.concatenate(errs), np.concatenate(inner)
+    return (float(allerr[inner].mean()), int(inner.sum()), int(allerr.size),
+            float(np.median(allerr)))
+
+
+def feature_job(names, n_pairs, journal, tag, default_roi_pairs=0):
+    """The strip job of :func:`build_job` with features ON: the SURF-class
+    detector (``features: 2``) at its defaults, hessianThreshold 400. The
+    last ``default_roi_pairs`` pairs carry no ROI: they take the `default`
+    ROI, the whole frame, which forces features by itself."""
+    job = build_job(names, n_pairs, journal, tag)
+    job["features"] = 2
+    index = {nm: z for z, nm in enumerate(names)}
+    for im in job["images"]:
+        im["z0"], im["z1"] = index[im["p"]], index[im["q"]]
+    if default_roi_pairs:
+        rois = job.pop("rois")
+        for im in job["images"][:-default_roi_pairs]:
+            im["rois"] = rois
+    return job
+
+
+def phase_features(results, tmp):
+    """Feature pre-alignment: the indexed aligner on a chained stack with
+    known affines, a style-1 job with features on through run_job_batched
+    and through the CLI, and the two degenerate cases."""
+    import torch
+
+    from optflow_tpu_torch.core import imgio
+    from optflow_tpu_torch.core.config import (
+        MatchParams, OrbParams, SurfParams, SURF_TYPE,
+    )
+    from optflow_tpu_torch.engine.batch_runner import run_job_batched
+    from optflow_tpu_torch.features import align, detect
+    from optflow_tpu_torch.ops.warp import affine_warp
+
+    dev = torch.device("cuda")
+    orb, surf, mp = OrbParams(), SurfParams(), MatchParams()
+
+    # the detector's convolutions must run in full float32 on the card
+    probe = torch.from_numpy(make_pair(128, 256, 0.0, 0.0, seed=2)[0])[None]
+    k2 = detect._gauss_kernel(2.0, 2)
+    on_card = detect._conv1d(detect._conv1d(probe.to(dev), k2, 0), k2, 1).cpu()
+    on_host = detect._conv1d(detect._conv1d(probe, k2, 0), k2, 1)
+    conv_rel = float((on_card - on_host).abs().max() / on_host.abs().max())
+    if not conv_rel <= 1e-5:
+        fail(f"the detector's convolution differs between the card and the "
+             f"host by {conv_rel} of its range: not float32 arithmetic")
+
+    # (a) the frame-deduplicated aligner, 17 frames -> 16 pairs
+    n_pairs = 16
+    frames_np, truth = chained_strip_stack(n_pairs + 1)
+    frames = torch.from_numpy(frames_np).to(dev)
+    dst_idx = torch.arange(n_pairs, device=dev)
+    src_idx = dst_idx + 1
+
+    def stages():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        kps, desc, binary = align._detect_describe_device(
+            frames, SURF_TYPE, orb, surf)
+        ev[1].record()
+        res = align.match_and_fit_indexed(
+            kps, desc, src_idx, dst_idx, binary, mp)
+        ev[2].record()
+        warped = affine_warp(frames[src_idx], res.affine)
+        ev[3].record()
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        return kps, res, warped, ms
+
+    stages()  # warm-up
+    kps, res, warped, ms = stages()
+    whole = align.find_alignment_indexed(
+        frames, src_idx, dst_idx, SURF_TYPE, orb, surf, mp)
+    aff = res.affine.double().cpu().numpy()
+    h, w = frames_np.shape[1:]
+    corners = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1],
+                        [w - 1, h - 1, 1]], np.float64).T
+    corner_errs = [float(np.abs(aff[i] @ corners - truth[i] @ corners).max())
+                   for i in range(n_pairs)]
+    # what the warp leaves for the solver: warped frame k+1 against frame k
+    inner = (slice(None), slice(16, -16), slice(16, -16))
+    residual = float((warped - frames[:n_pairs])[inner].abs().mean())
+    unaligned = float((frames[1:] - frames[:n_pairs])[inner].abs().mean())
+    emit({"phase": "features", "part": "indexed",
+          "shape": list(frames_np.shape), "pairs": n_pairs,
+          "capacity": int(kps.x.shape[1]),
+          "valid_keypoints_mean": float(kps.valid.sum(1).float().mean()),
+          "n_good": res.n_good.tolist(), "enough": res.enough.tolist(),
+          "homo_ok": res.homo_ok.tolist(),
+          "corner_err_px": corner_errs,
+          "corner_err_mean_px": float(np.mean(corner_errs)), "gate_px": 3.0,
+          "abs_diff_unaligned": unaligned, "abs_diff_aligned": residual,
+          "detect_describe_ms": ms[0], "match_fit_ms": ms[1],
+          "warp_ms": ms[2], "conv_card_vs_host_rel": conv_rel,
+          "same_affine_from_entry_point":
+          max_abs_diff(whole.affine, res.affine)})
+    if not (bool(res.enough.all()) and bool(res.homo_ok.all())):
+        fail("a pair of the chained stack failed its gates")
+    if not np.mean(corner_errs) <= 3.0:
+        fail(f"mean affine corner error {np.mean(corner_errs)} > 3.0 px")
+    if not residual < unaligned:
+        fail("warping by the recovered affines did not bring the frames "
+             "closer")
+    if max_abs_diff(whole.affine, res.affine) != 0.0:
+        fail("find_alignment_indexed differs from its two halves")
+    del frames, warped, kps, res, whole
+
+    # (b) 32 misaligned strip pairs through run_job_batched, features on
+    n_pairs = 32
+    n_frames = n_pairs // MAX_DZ + MAX_DZ + 1
+    t0 = time.perf_counter()
+    sections, mats = misaligned_sections(n_frames)
+    synth_s = time.perf_counter() - t0
+    names = [f"mem://mis_{z:04d}" for z in range(n_frames)]
+    half = {
+        nm: s.reshape(SRC_H // 2, 2, SRC_W // 2, 2).astype(np.float32)
+        .mean(axis=(1, 3))
+        for nm, s in zip(names, sections)
+    }
+    job = feature_job(names, n_pairs, os.path.join(tmp, "feat.journal"),
+                      "feat")
+    sink = MockRenderSink()
+    # a main path: counts are set to 0 just before and read just after
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stats = run_job_batched(job, sink=sink,
+                                loader=lambda path, scale: half[path],
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launch_counts()["tvl1_level_solve"]
+    err, n_inner, n_matches, err_median = gate_matches_rigid(
+        sink.match_sets, job, mats)
+    groups = -(-n_pairs // job["pair_batch"])
+    uniq = [len({nm for im in job["images"][g * 16:(g + 1) * 16]
+                 for nm in (im["p"], im["q"])}) for g in range(groups)]
+    mp_per_pair = 2 * STRIP * (SRC_W * SCALE) / 1e6
+    t = stats["timing"]
+    emit({"phase": "features", "part": "job", "pairs": stats["pairs"],
+          "batched": stats["batched"], "sequential": stats["sequential"],
+          "matches": stats["matches"], "emitted_matches": n_matches,
+          "gated_matches": n_inner, "match_err_px": err, "gate_px": 1.0,
+          "match_err_median_all_px": err_median, "wall_s": wall,
+          "mp_pairs_per_s": stats["pairs"] * mp_per_pair / wall,
+          "detected_frames": stats["detected_frames"],
+          "unique_frames_per_group": uniq, "launches": launches,
+          "gate_messages": out.getvalue().count("transformation"),
+          "prealign_share_of_prealign_plus_solve":
+          t.get("prealign_device_s", 0.0)
+          / max(t.get("prealign_device_s", 0.0)
+                + t.get("solve_device_s", 0.0), 1e-9),
+          "synth_s": round(synth_s, 2), "timing": t})
+    if stats["batched"] != n_pairs or stats["sequential"] != 0:
+        fail(f"expected all {n_pairs} feature pairs batched: {stats}")
+    if stats["detected_frames"] != sum(uniq):
+        fail(f"{stats['detected_frames']} frames went through detect + "
+             f"describe; the groups hold {uniq} unique frames")
+    if launches < 1:
+        fail("the feature job did not launch the level kernel")
+    if stats["matches"] != n_pairs * 2 * 25:
+        fail(f"expected {n_pairs * 50} matches, got {stats['matches']}")
+    if err is None or not err <= 1.0:
+        fail(f"feature job: mean match error {err} > 1.0 full-res px")
+
+    # (c) 16 pairs from PNG files through the CLI without --no-features;
+    # the last two pairs carry no ROI and take the `default` one
+    decoder = imgio.decoder_name()
+    if decoder is None:
+        emit({"phase": "features", "part": "cli",
+              "skipped": "no image decoder installed"})
+    else:
+        n_pairs = 16
+        n_cli_frames = n_pairs // MAX_DZ + MAX_DZ + 1
+        paths = write_pngs(sections[:n_cli_frames],
+                           os.path.join(tmp, "mis_stack"), decoder)
+        job = feature_job(paths, n_pairs, os.path.join(tmp, "fcli.journal"),
+                          "fcli", default_roi_pairs=2)
+        proc, match_sets, wall = run_cli(job, tmp, "fcli")
+        if len(match_sets) != n_pairs:
+            fail(f"the CLI emitted {len(match_sets)} match sets, "
+                 f"not {n_pairs}")
+        err, n_inner, n_matches, err_median = gate_matches_rigid(
+            match_sets, job, mats)
+        last_line = proc.stdout.strip().splitlines()[-1]
+        found = re.search(r"'tvl1_level_solve': (\d+)", last_line)
+        emit({"phase": "features", "part": "cli", "decoder": decoder,
+              "pairs": len(match_sets), "default_roi_pairs": 2,
+              "emitted_matches": n_matches, "gated_matches": n_inner,
+              "match_err_px": err, "gate_px": 1.0,
+              "match_err_median_all_px": err_median, "wall_s": wall,
+              "last_line": last_line})
+        if "'sequential': 0" not in last_line or not found \
+                or int(found.group(1)) < 1:
+            fail(f"the CLI's feature job did not batch every pair through "
+                 f"the level kernel: {last_line}")
+        if err is None or not err <= 1.0:
+            fail(f"CLI feature job: mean match error {err} > 1.0 px")
+
+    # (d) the degenerate cases
+    frame = half[names[0]]
+    same = align.find_alignment(frame, frame, {}, {}, device="cuda")
+    fh, fw = frame.shape
+    corners = np.array([[0, 0, 1], [fw - 1, 0, 1], [0, fh - 1, 1],
+                        [fw - 1, fh - 1, 1]], np.float64).T
+    ident_err = float(np.abs(same.astype(np.float64) @ corners
+                             - corners[:2]).max())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        flat = align.find_alignment(np.full_like(frame, 90.0), frame, {}, {},
+                                    device="cuda")
+    emit({"phase": "features", "part": "degenerate",
+          "identical_frames_corner_err_px": ident_err, "gate_px": 0.05,
+          "flat_frame_message": out.getvalue().strip(),
+          "flat_frame_affine": flat.tolist()})
+    if not ident_err <= 0.05:
+        fail(f"identical frames gave an affine {ident_err} px from the "
+             f"identity at the corners")
+    if "Not enough matches. Using no transformation" not in out.getvalue() \
+            or not np.array_equal(flat, align.IDENTITY):
+        fail("a flat frame must print the reference's message and fall to "
+             "the identity")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1262,6 +1909,10 @@ def main(argv=None) -> int:
             phase_build()
         if "kernels" in phases:
             phase_kernels(results)
+        if "ablate" in phases:
+            phase_ablate(results)
+        if "smem_cap" in phases:
+            phase_smem_cap(results)
         if "solve" in phases:
             phase_solve()
         if "job" in phases:
@@ -1272,6 +1923,8 @@ def main(argv=None) -> int:
             phase_section(results, tmp)
         if "level_api" in phases:
             phase_level_api(results)
+        if "features" in phases:
+            phase_features(results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1284,12 +1937,13 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches.get(name, 0),
             "shape": case["shape"],
-            **{k: case[k] for k in ("warps", "iterations", "k", "m", "mode")
-               if k in case},
+            **{k: case[k] for k in ("warps", "iterations", "k", "m", "mode",
+                                    "variant") if k in case},
             "max_abs_err": case["max_abs_du"], "tolerance": case["tolerance"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
-            # no PyTorch call computes a TV-L1 level or chunk
+            # no PyTorch call computes a TV-L1 level or chunk, or fills a
+            # block's shared memory
             "library_ms": None,
         } for name, case in cases.items()]})
         if complete and any(launches.get(name, 0) < 1 for name in cases):

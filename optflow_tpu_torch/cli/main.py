@@ -2,8 +2,10 @@
 
 Reference-compatible with ``optflow <file.json[.gz]>`` (src/optflow.cpp:29-72):
 loads the (possibly gzipped) JSON job file and runs a ``style`` 1 job (the
-batch pair solve) on the GPU. The ``align`` subcommand and ``style`` 2 (the
-average-flow temporal aligner) are not ported yet and exit with a message.
+batch pair solve, with feature pre-alignment unless the job or
+``--no-features`` turns it off) on the GPU. The ``align`` subcommand and
+``style`` 2 (the average-flow temporal aligner) are not ported yet and exit
+with a message.
 """
 
 from __future__ import annotations
@@ -53,15 +55,21 @@ def main(argv=None) -> int:
 
     style = int(args.get("style", 1))
     if style == 1:
+        from optflow_tpu_torch.engine.features_glue import default_aligner
+
         with profiler_trace(ns.profile_dir):
             if int(args.get("pair_batch", 1)) > 1:
                 from optflow_tpu_torch.engine.batch_runner import run_job_batched
 
-                stats = run_job_batched(args, device=ns.device)
+                stats = run_job_batched(
+                    args, aligner=default_aligner, device=ns.device
+                )
             else:
                 from optflow_tpu_torch.engine.runner import run_job
 
-                stats = run_job(args, device=ns.device)
+                stats = run_job(
+                    args, aligner=default_aligner, device=ns.device
+                )
         if ns.profile_dir:
             print(f"profiler trace written to {ns.profile_dir}")
         from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
@@ -69,7 +77,8 @@ def main(argv=None) -> int:
         )
         from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
 
-        # kernel launches of this process: 0 when the job ran on the CPU
+        # launches of the product's kernels in this process (the tools'
+        # kernels never run in a job): 0 when the job ran on the CPU
         stats["kernel_launches"] = {
             "tvl1_level_solve": tvl1_level_solve.launches,
             "tvl1_blocked_level_solve": tvl1_blocked_level_solve.launches,

@@ -11,6 +11,10 @@ nothing of the other, and return this package's types and layouts:
   u1, u2, p11, p12, p21, p22
 - warped arrays of a sweep: ``(N, 3, H, W)`` float32 in the order
   i1wx, i1wy, rho_c
+- keypoints: the six fields x, y, sigma, angle, response, valid, each
+  ``(K,)`` (or ``(F, K)`` for a stack of frames); descriptors ``(K, D)``
+- affines: ``(2, 3)`` or ``(N, 2, 3)`` float32, the forward matrix
+- feature parameters: the detector type and the three parameter dataclasses
 
 The JAX package's level kernels take the last two zero-padded to a canvas
 ``(N, C, Hp, Wp)`` (rows to a multiple of 8 or of the row block, columns to
@@ -22,25 +26,77 @@ go between the two.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from optflow_tpu_torch.core.config import TVL1Params
+from optflow_tpu_torch.core.config import (
+    MatchParams,
+    OrbParams,
+    SurfParams,
+    TVL1Params,
+)
+from optflow_tpu_torch.features.detect import Keypoints
 
 STATE_ORDER = ("u1", "u2", "p11", "p12", "p21", "p22")
+
+
+def _dataclass_from_fields(cls, fields: Mapping):
+    names = {f.name for f in dataclasses.fields(cls)}
+    if set(fields) != names:
+        raise ValueError(
+            f"{cls.__name__} fields differ: {sorted(set(fields) ^ names)}"
+        )
+    return cls(**{k: fields[k] for k in names})
 
 
 def params_from_reference(fields: Mapping) -> TVL1Params:
     """``TVL1Params`` from the field dict of the JAX package's dataclass.
     Unknown or missing fields raise: the two classes must stay in step."""
-    names = {f.name for f in dataclasses.fields(TVL1Params)}
-    if set(fields) != names:
-        raise ValueError(
-            f"TVL1Params fields differ: {sorted(set(fields) ^ names)}"
-        )
-    return TVL1Params(**{k: fields[k] for k in names})
+    return _dataclass_from_fields(TVL1Params, fields)
+
+
+def feature_params_from_reference(
+    ftype: int, orb: Mapping, surf: Mapping, match: Mapping
+) -> Tuple[int, OrbParams, SurfParams, MatchParams]:
+    """The bundle ``features.align.resolve_feature_params`` returns, from
+    the detector type and the field dicts of the JAX package's three
+    parameter dataclasses. Unknown or missing fields raise."""
+    return (
+        int(ftype),
+        _dataclass_from_fields(OrbParams, orb),
+        _dataclass_from_fields(SurfParams, surf),
+        _dataclass_from_fields(MatchParams, match),
+    )
+
+
+def keypoints_from_numpy(
+    x, y, sigma, angle, response, valid, device="cuda"
+) -> Keypoints:
+    """``Keypoints`` from the six arrays of the JAX package's keypoints
+    (``np.asarray`` of each field, in its order)."""
+    fields = [
+        torch.as_tensor(np.array(a, np.float32), device=device)
+        for a in (x, y, sigma, angle, response)
+    ]
+    ok = torch.as_tensor(np.array(valid, bool), device=device)
+    if any(f.shape != ok.shape for f in fields):
+        raise ValueError("keypoint fields differ in shape")
+    return Keypoints(*fields, ok)
+
+
+def keypoints_to_numpy(kps: Keypoints) -> Tuple[np.ndarray, ...]:
+    """The six fields as numpy arrays, in ``Keypoints`` order."""
+    return tuple(a.detach().cpu().numpy() for a in kps)
+
+
+def affine_from_numpy(affine: np.ndarray, device="cuda") -> torch.Tensor:
+    """``(2, 3)`` or ``(N, 2, 3)`` forward affine -> float32 tensor."""
+    affine = np.ascontiguousarray(affine, dtype=np.float32)
+    if affine.shape[-2:] != (2, 3):
+        raise ValueError(f"affine must end in (2, 3), got {affine.shape}")
+    return torch.as_tensor(affine, device=device)
 
 
 def level_state_from_numpy(

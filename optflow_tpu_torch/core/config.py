@@ -157,6 +157,84 @@ class TVL1Params:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class OrbParams:
+    """ORB-class detector/descriptor parameters (ref: features.cpp:19-32)."""
+
+    nfeatures: int = 5000
+    scale_factor: float = 1.2
+    nlevels: int = 8
+    edge_threshold: int = 31
+    first_level: int = 0
+    wta_k: int = 2
+    patch_size: int = 31
+    fast_threshold: int = 20
+    blur_for_descriptor: bool = False
+
+    @classmethod
+    def from_config(cls, im_args: Mapping, args: Mapping) -> "OrbParams":
+        return cls(
+            nfeatures=int(cfg_get(im_args, args, "nfeatures", 5000)),
+            scale_factor=float(cfg_get(im_args, args, "scaleFactor", 1.2)),
+            nlevels=int(cfg_get(im_args, args, "nlevels", 8)),
+            edge_threshold=int(cfg_get(im_args, args, "edgeThreshold", 31)),
+            first_level=int(cfg_get(im_args, args, "firstLevel", 0)),
+            wta_k=int(cfg_get(im_args, args, "WTA_K", 2)),
+            patch_size=int(cfg_get(im_args, args, "patchSize", 31)),
+            fast_threshold=int(cfg_get(im_args, args, "fastThreshold", 20)),
+            blur_for_descriptor=_as_bool(
+                cfg_get(im_args, args, "blurForDescriptor", False)
+            ),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfParams:
+    """SURF-class blob detector parameters (ref: features.cpp:34-44)."""
+
+    hessian_threshold: float = 400.0
+    n_octaves: int = 4
+    n_octave_layers: int = 2
+    extended: bool = False
+    keypoints_ratio: float = 0.01
+    upright: bool = False
+
+    @classmethod
+    def from_config(cls, im_args: Mapping, args: Mapping) -> "SurfParams":
+        return cls(
+            hessian_threshold=float(
+                cfg_get(im_args, args, "hessianThreshold", 400)
+            ),
+            n_octaves=int(cfg_get(im_args, args, "nOctaves", 4)),
+            n_octave_layers=int(cfg_get(im_args, args, "nOctaveLayers", 2)),
+            extended=_as_bool(cfg_get(im_args, args, "extended", False)),
+            keypoints_ratio=float(
+                cfg_get(im_args, args, "keypointsRatio", 0.01)
+            ),
+            upright=_as_bool(cfg_get(im_args, args, "upright", False)),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchParams:
+    """Feature matching / homography parameters
+    (ref: features.cpp:109,133; docs/example.json:26-44)."""
+
+    ratio: float = 0.8
+    homo: int = 4  # 0 = all points, 4 = RANSAC, 8 = least-median
+    ransac: float = 5.0
+    min_matches: int = 11  # ref requires good.size() > 10 (features.cpp:130)
+    max_zoom_deviation: float = 0.20  # sanity gate (features.cpp:134)
+
+    @classmethod
+    def from_config(cls, im_args: Mapping, args: Mapping) -> "MatchParams":
+        return cls(
+            ratio=float(cfg_get(im_args, args, "ratio", 0.8)),
+            homo=int(cfg_get(im_args, args, "homo", 4)),
+            ransac=float(cfg_get(im_args, args, "ransac", 5.0)),
+        )
+
+
 @dataclasses.dataclass
 class JobConfig:
     """A fully-loaded job file: the global args dict plus typed views.

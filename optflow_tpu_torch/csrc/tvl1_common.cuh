@@ -8,6 +8,14 @@
 // divisions and square roots, no fast-math flags. nvcc contracts a*b+c to
 // FMA, so the kernels differ from the plain PyTorch version in the last
 // bits, and agree with each other.
+//
+// The iteration takes four compile-time switches, all on by default (the
+// level, blocked and chunk kernels leave them so). tvl1_ablate.cu turns them
+// off to build the iteration with one class of cost compiled out:
+//   ERR   the sum of |u_new - u|^2 and its block-wide reduction
+//   SQRT  the two square roots of the dual norms (off: the squared norm)
+//   DIV   the five divisions (off: multiplications by the same operand)
+//   ROLL  the eight reads of a neighbouring pixel (off: the pixel itself)
 
 #pragma once
 
@@ -94,6 +102,7 @@ __device__ __forceinline__ void warp_pixel(
 
 // The primal step of one pixel: the soft threshold on the linearised
 // residual. Returns the update (d1, d2) of (u1, u2).
+template <bool DIV = true>
 __device__ __forceinline__ void threshold_step(float a, float b, float rho_c,
                                                float U1, float U2, float l_t,
                                                float* d1, float* d2) {
@@ -107,7 +116,7 @@ __device__ __forceinline__ void threshold_step(float a, float b, float rho_c,
     *d1 = -l_t * a;
     *d2 = -l_t * b;
   } else if (grad > GRAD_EPS) {
-    float fi = -rho / fmaxf(grad, GRAD_EPS);
+    float fi = DIV ? -rho / fmaxf(grad, GRAD_EPS) : -rho * fmaxf(grad, GRAD_EPS);
     *d1 = fi * a;
     *d2 = fi * b;
   } else {
@@ -220,7 +229,7 @@ __device__ __forceinline__ float block_sum(float v) {
 // image: u <- u + threshold step + theta * div p, in place (a pixel's new u
 // needs its own old u only). Returns this thread's share of the sum of
 // |u_new - u|^2 over the image rectangle [iy0, iy1) x [ix0, ix1).
-template <int WIN_W>
+template <int WIN_W, bool ERR = true, bool DIV = true, bool ROLL = true>
 __device__ __forceinline__ float window_primal(const Window& t, float l_t,
                                                float theta, int iy0, int iy1,
                                                int ix0, int ix1) {
@@ -242,21 +251,22 @@ __device__ __forceinline__ float window_primal(const Window& t, float l_t,
     if (x < 0 || x >= t.w || y < 0 || y >= t.h) continue;
     float U1 = u1[idx], U2 = u2[idx];
     float d1, d2;
-    threshold_step(i1wx[idx], i1wy[idx], rho_c[idx], U1, U2, l_t, &d1, &d2);
+    threshold_step<DIV>(i1wx[idx], i1wy[idx], rho_c[idx], U1, U2, l_t, &d1,
+                        &d2);
     // backward-difference divergence: p itself at the image's first
     // row/column; what lies left of or above the window reads as 0
     float q11 = p11[idx], q12 = p12[idx], q21 = p21[idx], q22 = p22[idx];
-    float l11 = lx > 0 ? p11[idx - 1] : 0.0f;
-    float l21 = lx > 0 ? p21[idx - 1] : 0.0f;
-    float a12 = ly > 0 ? p12[idx - ww] : 0.0f;
-    float a22 = ly > 0 ? p22[idx - ww] : 0.0f;
+    float l11 = !ROLL ? q11 : lx > 0 ? p11[idx - 1] : 0.0f;
+    float l21 = !ROLL ? q21 : lx > 0 ? p21[idx - 1] : 0.0f;
+    float a12 = !ROLL ? q12 : ly > 0 ? p12[idx - ww] : 0.0f;
+    float a22 = !ROLL ? q22 : ly > 0 ? p22[idx - ww] : 0.0f;
     float div1 = (x > 0 ? q11 - l11 : q11) + (y > 0 ? q12 - a12 : q12);
     float div2 = (x > 0 ? q21 - l21 : q21) + (y > 0 ? q22 - a22 : q22);
     float n1 = (U1 + d1) + theta * div1;
     float n2 = (U2 + d2) + theta * div2;
     u1[idx] = n1;
     u2[idx] = n2;
-    if (y >= iy0 && y < iy1 && x >= ix0 && x < ix1) {
+    if (ERR && y >= iy0 && y < iy1 && x >= ix0 && x < ix1) {
       float e1 = n1 - U1, e2 = n2 - U2;
       local += e1 * e1 + e2 * e2;
     }
@@ -268,7 +278,7 @@ __device__ __forceinline__ float window_primal(const Window& t, float l_t,
 // u, in place (a pixel's new p needs its own old p only). Forward
 // differences are zero at the image's last row/column; beyond the window's
 // edge they read as zero too.
-template <int WIN_W>
+template <int WIN_W, bool SQRT = true, bool DIV = true, bool ROLL = true>
 __device__ __forceinline__ void window_dual(const Window& t, float taut) {
   const int ww = window_width<WIN_W>(t);
   const int wpx = t.win_h * ww;
@@ -285,36 +295,47 @@ __device__ __forceinline__ void window_dual(const Window& t, float taut) {
     bool right = (x < t.w - 1) && (lx < ww - 1);
     bool below = (y < t.h - 1) && (ly < t.win_h - 1);
     float c1 = u1[idx], c2 = u2[idx];
-    float u1x = right ? u1[idx + 1] - c1 : 0.0f;
-    float u1y = below ? u1[idx + ww] - c1 : 0.0f;
-    float u2x = right ? u2[idx + 1] - c2 : 0.0f;
-    float u2y = below ? u2[idx + ww] - c2 : 0.0f;
-    float ng1 = 1.0f + taut * sqrtf(u1x * u1x + u1y * u1y);
-    float ng2 = 1.0f + taut * sqrtf(u2x * u2x + u2y * u2y);
-    p11[idx] = (p11[idx] + taut * u1x) / ng1;
-    p12[idx] = (p12[idx] + taut * u1y) / ng1;
-    p21[idx] = (p21[idx] + taut * u2x) / ng2;
-    p22[idx] = (p22[idx] + taut * u2y) / ng2;
+    float u1x = right ? (ROLL ? u1[idx + 1] : c1) - c1 : 0.0f;
+    float u1y = below ? (ROLL ? u1[idx + ww] : c1) - c1 : 0.0f;
+    float u2x = right ? (ROLL ? u2[idx + 1] : c2) - c2 : 0.0f;
+    float u2y = below ? (ROLL ? u2[idx + ww] : c2) - c2 : 0.0f;
+    float s1 = u1x * u1x + u1y * u1y, s2 = u2x * u2x + u2y * u2y;
+    float ng1 = 1.0f + taut * (SQRT ? sqrtf(s1) : s1);
+    float ng2 = 1.0f + taut * (SQRT ? sqrtf(s2) : s2);
+    if (DIV) {
+      p11[idx] = (p11[idx] + taut * u1x) / ng1;
+      p12[idx] = (p12[idx] + taut * u1y) / ng1;
+      p21[idx] = (p21[idx] + taut * u2x) / ng2;
+      p22[idx] = (p22[idx] + taut * u2y) / ng2;
+    } else {
+      p11[idx] = (p11[idx] + taut * u1x) * ng1;
+      p12[idx] = (p12[idx] + taut * u1y) * ng1;
+      p21[idx] = (p21[idx] + taut * u2x) * ng2;
+      p22[idx] = (p22[idx] + taut * u2y) * ng2;
+    }
   }
 }
 
 // `m` iterations on the window. Returns the sum of |u_new - u|^2 of the
 // LAST iteration over the image rectangle [iy0, iy1) x [ix0, ix1), the same
-// value in every thread. The caller synchronises the block after loading
-// the window; on return the window is complete.
-template <int WIN_W>
+// value in every thread (1 with ERR off: nothing is summed). The caller
+// synchronises the block after loading the window; on return the window is
+// complete.
+template <int WIN_W, bool ERR = true, bool SQRT = true, bool DIV = true,
+          bool ROLL = true>
 __device__ __forceinline__ float window_iterate(const Window& t, int m,
                                                 float l_t, float theta,
                                                 float taut, int iy0, int iy1,
                                                 int ix0, int ix1) {
   float local = 0.0f;
   for (int it = 0; it < m; ++it) {
-    local = window_primal<WIN_W>(t, l_t, theta, iy0, iy1, ix0, ix1);
+    local = window_primal<WIN_W, ERR, DIV, ROLL>(t, l_t, theta, iy0, iy1, ix0,
+                                                 ix1);
     __syncthreads();
-    window_dual<WIN_W>(t, taut);
+    window_dual<WIN_W, SQRT, DIV, ROLL>(t, taut);
     __syncthreads();
   }
-  return block_sum(local);
+  return ERR ? block_sum(local) : 1.0f;
 }
 
 }  // namespace

@@ -14,9 +14,18 @@ packed readback a few groups behind the dispatch front. ``map``/``flow``
 groups (and ``device_sample: false``) take the host path, which reads the
 full fields back and writes TIFFs / samples on the host.
 
-Pairs that can't batch — custom_diff ROIs, mismatched frame shapes — fall
-back to the sequential solve_rois path. Feature pre-alignment groups are
-not ported yet and raise ``NotImplementedError``.
+Feature pre-alignment pairs DO batch: the group's unique frames are
+detected and described once, matching and RANSAC run per pair, frame 1 of
+every pair is warped by its affine with the exact ``affine_warp`` — all on
+the device; the gates are read back for the reference's messages with the
+group's samples (device path) or before its solve (host path).
+Pairs that still can't batch — custom_diff ROIs, mismatched frame shapes, a
+caller-supplied host aligner — fall back to the sequential solve_rois path.
+
+As in the JAX package, a batched feature group is aligned by the package's
+own device aligner whether ``aligner`` is None or ``default_aligner``,
+while the sequential path with ``aligner=None`` aligns by the identity
+(engine/pair.py): the same call gives the same stats in both packages.
 
 Enable via the job key ``pair_batch`` (int > 1) or call
 :func:`run_job_batched` directly.
@@ -37,7 +46,6 @@ from optflow_tpu_torch.engine import device_group as dg
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
 from optflow_tpu_torch.engine.prefetch import make_prefetch_loader
 from optflow_tpu_torch.engine.pair import (
-    FEATURES_LATER,
     Aligner,
     _solve_mode,
     postprocess_flow,
@@ -46,22 +54,62 @@ from optflow_tpu_torch.engine.pair import (
 from optflow_tpu_torch.engine.rois import Roi, resolve_rois
 from optflow_tpu_torch.engine.runner import FrameCache
 from optflow_tpu_torch.engine.sampler import move_pm, random_points
+from optflow_tpu_torch.features.align import (
+    find_alignment_indexed,
+    print_align_warnings,
+    resolve_feature_params,
+)
 from optflow_tpu_torch.ops.tvl1 import tvl1_flow_batched
+from optflow_tpu_torch.ops.warp import affine_warp
 from optflow_tpu_torch.sinks.http import make_sink
 from optflow_tpu_torch.utils.metrics import StageTimer
 
 
 def _batched_solver(params: TVL1Params, mode: str):
     """Batched ROI solve + flow post-processing for the host path. ``mode``
-    follows engine.pair._solve_mode ("displacement" or "map")."""
-    if mode.startswith("features"):
-        raise NotImplementedError(FEATURES_LATER)
+    follows engine.pair._solve_mode; the features_* modes take the pairs'
+    (N, 2, 3) affines and reproduce solve_wrapper's map composition
+    (src/optflow.cpp:411-443)."""
 
-    def f(i0s: torch.Tensor, i1s: torch.Tensor):
+    def f(i0s: torch.Tensor, i1s: torch.Tensor,
+          affines: Optional[torch.Tensor] = None):
         flow = tvl1_flow_batched(i0s, i1s, params)
-        return postprocess_flow(flow, i0s, i1s, mode)
+        return postprocess_flow(flow, i0s, i1s, mode, affines)
 
     return f
+
+
+def _prealign_group(frames_dev: torch.Tensor, f1_idx, f0_idx, fparams):
+    """Batched feature pre-alignment + frame-1 warp: the device equivalent
+    of find_alignment + cv::cuda::warpAffine (src/optflow.cpp:366-377) for
+    a whole group. FRAME-DEDUPLICATED: detect + describe run once per
+    unique frame of ``frames_dev`` (U, fh, fw) and matching/RANSAC per pair
+    via the index arrays. The affine maps frame1 into frame0's space:
+    src = frame1, dst = frame0. Returns (AlignResult, warped (n, fh, fw))."""
+    dev = frames_dev.device
+    f1 = torch.as_tensor(f1_idx, dtype=torch.int64, device=dev)
+    f0 = torch.as_tensor(f0_idx, dtype=torch.int64, device=dev)
+    res = find_alignment_indexed(frames_dev, f1, f0, *fparams)
+    warped = affine_warp(frames_dev[f1], res.affine)
+    return res, warped
+
+
+def _report_alignment(res, n: int, debug: bool) -> None:
+    """One readback of a group's gates, then the reference's per-pair
+    messages (and, under ``debug``, the match counts and homographies)."""
+    gates = torch.stack(
+        [res.n_good.to(torch.float32), res.enough.to(torch.float32),
+         res.homo_ok.to(torch.float32)], dim=1,
+    )
+    packed = torch.cat([gates, res.H.reshape(-1, 9).to(torch.float32)], dim=1)
+    packed = packed.cpu().numpy()
+    for j in range(n):
+        if debug:
+            print(f"Number of good features: {int(packed[j, 0])}")
+        print_align_warnings(
+            bool(packed[j, 1]), bool(packed[j, 2]),
+            packed[j, 3:].reshape(3, 3), debug,
+        )
 
 
 def _dedup_frames(tasks, n: int):
@@ -106,13 +154,15 @@ def _wants_features(im_data, args, rois) -> bool:
 def _group_key(im_data, args, frame0, frame1, rois, cfg: JobConfig):
     params = TVL1Params.from_config(im_data, args)
     roi_sig = tuple(sorted((k, v) for k, v in rois.items()))
+    features = _wants_features(im_data, args, rois)
     return (
         frame0.shape,
         frame1.shape,
         params,
         cfg.output_type(im_data),
         roi_sig,
-        _wants_features(im_data, args, rois),
+        features,
+        resolve_feature_params(im_data, args) if features else None,
         # per-image npoints overrides must not inherit the group
         # leader's count in the device sampler
         cfg.npoints(im_data),
@@ -141,10 +191,18 @@ def run_job_batched(
     pair_batch: Optional[int] = None,
     device="cuda",
 ) -> Dict:
-    """Batched equivalent of runner.run_job (same stats contract) on one
-    explicit ``device``. ``loader(path, scale) -> float32 ndarray`` replaces
-    the default decode (it must return the same array for a repeated key:
-    array identity keys the device frame cache)."""
+    """Batched equivalent of runner.run_job (same stats contract, plus
+    ``solve_device`` and ``detected_frames``, the frames that went through
+    detect + describe) on one explicit ``device``.
+    ``loader(path, scale) -> float32 ndarray`` replaces the default decode
+    (it must return the same array for a repeated key: array identity keys
+    the device frame cache and the once-per-frame detection).
+
+    ``aligner=None`` and ``default_aligner`` both let feature groups batch
+    through the device aligner; any other aligner is a host function and
+    sends its pairs down the sequential path, where ``None`` means the
+    identity — the JAX package's behaviour, kept so that the same call
+    gives the same stats."""
     cfg = JobConfig(args)
     device = torch.device(device)
     # a caller-supplied host aligner forces feature pairs onto the
@@ -169,7 +227,7 @@ def run_job_batched(
 
     stats = {"pairs": 0, "skipped": 0, "uploads": 0, "matches": 0,
              "resumed": 0, "batched": 0, "sequential": 0,
-             "solve_device": None}
+             "solve_device": None, "detected_frames": 0}
     batch_size = cfg.batch_size()
     upload_state = {"last": 0, "pending": False}
 
@@ -190,7 +248,8 @@ def run_job_batched(
             if journal:
                 journal.record_flush()
 
-    def post_process(task: _Task, roi_key: str, roi: Roi, fx, fy, valid):
+    def post_process(task: _Task, roi_key: str, roi: Roi, fx, fy, valid,
+                     features: bool):
         im_data = task.im_data
         suffix = "_" + roi_key if roi_key in ("top", "bottom") else ""
         im_data["output_suffix"] = suffix
@@ -205,7 +264,7 @@ def run_job_batched(
                 fx, fy, valid, (roi, roi),
                 npoints=cfg.npoints(im_data),
                 inv_scale=1.0 / scale,
-                features=False,
+                features=features,
                 debug=cfg.debug,
                 point_matches=im_data.get("point_matches"),
             )
@@ -216,16 +275,33 @@ def run_job_batched(
         t0 = tasks[0]
         params = TVL1Params.from_config(t0.im_data, args)
         output_type = cfg.output_type(t0.im_data)
-        if _wants_features(t0.im_data, args, t0.rois):
-            raise NotImplementedError(FEATURES_LATER)
-        mode = _solve_mode(False, output_type)
+        features = _wants_features(t0.im_data, args, t0.rois)
+        mode = _solve_mode(features, output_type)
         if output_type == "random_points" and args.get("device_sample", True):
             # random_points needs nothing full-sized on the host: the
             # device-resident pipeline uploads unique frames once and
             # reads back only sampled points, a few groups behind the
             # dispatch front (engine/device_group.py)
-            flush_group_device(tasks, params, mode)
+            flush_group_device(tasks, params, mode, features)
             return
+        affines = warped = None
+        if features:
+            # one pass pre-aligns + warps the whole group (ref: per-pair
+            # find_alignment + warpAffine, src/optflow.cpp:366-377)
+            fparams = resolve_feature_params(t0.im_data, args)
+            uniq, f0_idx, f1_idx = _dedup_frames(tasks, len(tasks))
+            with timer.device_stage("h2d", device):
+                frames_dev = torch.from_numpy(
+                    np.stack([np.asarray(u, np.float32) for u in uniq])
+                ).to(device)
+            with timer.device_stage("prealign", device):
+                res, warped = _prealign_group(
+                    frames_dev, f1_idx, f0_idx, fparams
+                )
+                affines = res.affine
+            stats["detected_frames"] += len(uniq)
+            _report_alignment(res, len(tasks), cfg.debug)
+            timer.read_device_events()
         solver = _batched_solver(params, mode)
         for roi_key in sorted(t0.rois.keys()):
             roi: Roi = t0.rois[roi_key]
@@ -234,12 +310,15 @@ def run_job_batched(
                     [np.asarray(t.frame0[roi.slices()], np.float32)
                      for t in tasks]
                 )).to(device)
-                b = torch.from_numpy(np.stack(
-                    [np.asarray(t.frame1[roi.slices()], np.float32)
-                     for t in tasks]
-                )).to(device)
+                if features:
+                    b = warped[(slice(None), *roi.slices())].contiguous()
+                else:
+                    b = torch.from_numpy(np.stack(
+                        [np.asarray(t.frame1[roi.slices()], np.float32)
+                         for t in tasks]
+                    )).to(device)
             with timer.device_stage("solve", device):
-                fxs, fys, valids = solver(a, b)
+                fxs, fys, valids = solver(a, b, affines)
             stats["solve_device"] = str(fxs.device)
             with timer.stage("d2h"):
                 fxs = fxs.cpu().numpy()
@@ -249,7 +328,8 @@ def run_job_batched(
             with timer.stage("postprocess"):
                 for j, task in enumerate(tasks):
                     post_process(
-                        task, roi_key, roi, fxs[j], fys[j], valids[j]
+                        task, roi_key, roi, fxs[j], fys[j], valids[j],
+                        features,
                     )
         finish_tasks(tasks)
 
@@ -279,7 +359,8 @@ def run_job_batched(
         ):
             complete_device_group(pending_groups.pop(0))
 
-    def flush_group_device(tasks: List[_Task], params, mode: str):
+    def flush_group_device(tasks: List[_Task], params, mode: str,
+                           features: bool):
         t0 = tasks[0]
         n = len(tasks)
         npoints = cfg.npoints(t0.im_data)
@@ -292,6 +373,16 @@ def run_job_batched(
                 uniq, dg.frame_upload_dtype(cfg.scale(t0.im_data))
             )
             frames_dev = dg.stack_frames(handles)
+
+        res = aff_d = warped_d = None
+        if features:
+            fparams = resolve_feature_params(t0.im_data, args)
+            with timer.device_stage("prealign", device):
+                res, warped_d = _prealign_group(
+                    frames_dev, f1_idx, f0_idx, fparams
+                )
+                aff_d = res.affine
+            stats["detected_frames"] += len(uniq)
 
         # same-shape ROIs solve together (top/bottom strips share one
         # solve and one readback); shapes differ -> separate passes
@@ -306,12 +397,14 @@ def run_job_batched(
             with timer.device_stage("solve", device):
                 packed, _i0s, _i1s, flow = dg.solve_group_on_device(
                     frames_dev, f0_idx, f1_idx, roi_list, params, mode,
-                    npoints, debug=cfg.debug, seed=seed,
+                    npoints, affines_dev=aff_d, warped_dev=warped_d,
+                    debug=cfg.debug, seed=seed,
                 )
             stats["solve_device"] = str(flow.device)
             payloads.append({"roi_list": roi_list, "packed": packed})
         pending_groups.append(
-            {"tasks": tasks, "payloads": payloads, "npoints": npoints}
+            {"tasks": tasks, "payloads": payloads, "npoints": npoints,
+             "features": features, "alignment": res}
         )
         drain_pending()
 
@@ -319,10 +412,14 @@ def run_job_batched(
         tasks = ent["tasks"]
         n = len(tasks)
         npoints = ent["npoints"]
-        for pl in ent["payloads"]:
+        for k, pl in enumerate(ent["payloads"]):
             with timer.stage("sample"):
                 packed_np = pl["packed"].cpu().numpy()  # the one sync
             timer.read_device_events()  # no wait: what the sync has passed
+            if k == 0 and ent["alignment"] is not None:
+                # the gates were decided on the device before the solve:
+                # reading them here, behind the samples, costs no wait
+                _report_alignment(ent["alignment"], n, cfg.debug)
             samples, counts = dg.unpack_samples(packed_np, n, npoints)
             with timer.stage("postprocess"):
                 for r, (_roi_key, roi) in enumerate(pl["roi_list"]):
@@ -330,7 +427,8 @@ def run_job_batched(
                         task.im_data["point_matches"] = (
                             dg.matches_from_samples(
                                 samples[r, j], int(counts[r, j]), roi,
-                                1.0 / cfg.scale(task.im_data), False,
+                                1.0 / cfg.scale(task.im_data),
+                                ent["features"],
                                 task.im_data.get("point_matches"),
                             )
                         )

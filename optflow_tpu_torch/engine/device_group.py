@@ -9,9 +9,11 @@ device:
   cache, as float16 where that is LOSSLESS (scales 1.0/0.5: quarter-integer
   intensities <= 255.75 are exactly representable) and float32 otherwise —
   see :func:`frame_upload_dtype`;
-- ROI slicing, pair gathering, flow post-processing (map composition,
-  background zero-mask, union valid mask — src/optflow.cpp:411-493
-  semantics) and POINT SAMPLING all run on the device;
+- ROI slicing, pair gathering, flow post-processing (map and
+  feature-affine composition, background zero-mask, union valid mask —
+  src/optflow.cpp:411-493 semantics) and POINT SAMPLING all run on the
+  device; a feature group's frame 1 is the pre-aligned, warped frame of
+  each pair, which never leaves the device either;
 - sampling is a top-k over per-pixel random priorities: exactly a uniform
   draw of ``npoints`` valid pixels without replacement (the reference's
   findNonZero + shuffle + take-front, src/optflow.cpp:522-572),
@@ -99,15 +101,17 @@ def gather_rois(
     f0_idx: torch.Tensor,  # (n,) int64
     f1_idx: torch.Tensor,
     rois: Sequence[Roi],  # same-shape ROIs
+    warped: Optional[torch.Tensor] = None,  # (n, fh, fw) f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ROI stacks for every (roi, pair) from the device frame stack.
 
     Returns (R*n, h, w) f32 i0/i1 stacks ordered ROI-major (roi r's pairs
-    are rows [r*n, (r+1)*n))."""
+    are rows [r*n, (r+1)*n)). With ``warped`` (feature groups), frame 1
+    comes from the pre-warped per-pair frames instead of the frame stack."""
     if any(r.shape != rois[0].shape for r in rois):
         raise ValueError("gather_rois takes ROIs of one shape")
     f0 = frames[f0_idx]  # (n, fh, fw)
-    f1 = frames[f1_idx]
+    f1 = frames[f1_idx] if warped is None else warped
     i0 = torch.cat([f0[(slice(None), *r.slices())] for r in rois])
     i1 = torch.cat([f1[(slice(None), *r.slices())] for r in rois])
     return i0.contiguous(), i1.contiguous()
@@ -153,10 +157,14 @@ def solve_group_on_device(
     params: TVL1Params,
     mode: str,
     npoints: int,
+    affines_dev: Optional[torch.Tensor] = None,  # (n, 2, 3) f32, features
+    warped_dev: Optional[torch.Tensor] = None,  # (n, fh, fw) f32, features
     debug: bool = False,
     seed: int = 0,
 ):
-    """Solve all same-shape ROIs of a pair group fully on the device.
+    """Solve all same-shape ROIs of a pair group fully on the device. A
+    feature group passes its pairs' affines and pre-warped frames 1; the
+    map composition resamples with the exact affine warp.
 
     Returns (packed, i0s, i1s, flow): ``packed`` is the
     (R*n, npoints*4+1) payload of :func:`sample_points` (``.cpu()`` it: ONE
@@ -168,9 +176,15 @@ def solve_group_on_device(
             torch.as_tensor(f0_idx, dtype=torch.int64, device=dev),
             torch.as_tensor(f1_idx, dtype=torch.int64, device=dev),
             [r for _name, r in rois],
+            warped=warped_dev,
         )
         flow = tvl1_flow_batched(i0s, i1s, params)
-        fx, fy, valid = postprocess_flow(flow, i0s, i1s, mode)
+        affs = None
+        if mode.startswith("features"):
+            if affines_dev is None or warped_dev is None:
+                raise ValueError(f"mode {mode!r} needs affines and warped frames")
+            affs = torch.cat([affines_dev] * len(rois))
+        fx, fy, valid = postprocess_flow(flow, i0s, i1s, mode, affs)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0 if debug else int(seed))
         packed = sample_points(fx, fy, valid, npoints, gen)

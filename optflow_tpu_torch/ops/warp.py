@@ -10,14 +10,16 @@ on (invoked via cv::cuda::OpticalFlowDual_TVL1 at src/optflow.cpp:516-520):
   truncated-cubic-hat interpolation the CUDA kernel uses (2x2 support,
   normalized weights, clamp-to-edge)
 
+- the affine warp of feature pre-alignment (cv::cuda::warpAffine)
+
 Every function works on the trailing ``(H, W)`` axes, so a single image and
-an ``(N, H, W)`` batch take the same code. The warp is the exact gather: it
-has no bound on the flow's magnitude.
+an ``(N, H, W)`` batch take the same code. The warps are exact gathers: no
+bound on the flow's magnitude or on the affine.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -130,3 +132,73 @@ def warp_backward(
     grad = i1wx * i1wx + i1wy * i1wy
     rho_c = i1w - i1wx * u1 - i1wy * u2 - i0
     return i1w, i1wx, i1wy, grad, rho_c
+
+
+def invert_affine(affine: torch.Tensor) -> torch.Tensor:
+    """Invert ``(..., 2, 3)`` affine matrices (cv::invertAffineTransform); a
+    singular matrix inverts to zeros."""
+    a, b, tx = affine[..., 0, 0], affine[..., 0, 1], affine[..., 0, 2]
+    c, d, ty = affine[..., 1, 0], affine[..., 1, 1], affine[..., 1, 2]
+    det = a * d - b * c
+    inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, torch.zeros_like(det))
+    ia = d * inv_det
+    ib = -b * inv_det
+    ic = -c * inv_det
+    id_ = a * inv_det
+    itx = -(ia * tx + ib * ty)
+    ity = -(ic * tx + id_ * ty)
+    return torch.stack(
+        [torch.stack([ia, ib, itx], dim=-1), torch.stack([ic, id_, ity], dim=-1)],
+        dim=-2,
+    )
+
+
+def affine_warp(
+    im: torch.Tensor,  # (H, W) or (N, H, W)
+    affine: torch.Tensor,  # (2, 3) or (N, 2, 3)
+    out_shape: Optional[Tuple[int, int]] = None,
+    fill: float = 0.0,
+) -> torch.Tensor:
+    """cv::cuda::warpAffine semantics (src/optflow.cpp:374,431-432):
+
+    ``affine`` is the *forward* 2x3 matrix; the output pixel at (x, y)
+    samples the input at affine^-1 (x, y) with bilinear interpolation and a
+    constant border (taps outside the source contribute ``fill``). A batch
+    takes one matrix per image.
+    """
+    single = im.dim() == 2
+    ims = im[None] if single else im
+    affs = affine.reshape(-1, 2, 3).to(torch.float32)
+    n, h, w = ims.shape
+    if affs.shape[0] != n:
+        raise ValueError(f"{n} images but {affs.shape[0]} affine matrices")
+    oh, ow = (h, w) if out_shape is None else out_shape
+    inv = invert_affine(affs)[:, :, :, None, None]  # (N, 2, 3, 1, 1)
+    xs = torch.arange(ow, dtype=torch.float32, device=ims.device)
+    ys = torch.arange(oh, dtype=torch.float32, device=ims.device)[:, None]
+    sx = inv[:, 0, 0] * xs + inv[:, 0, 1] * ys + inv[:, 0, 2]  # (N, oh, ow)
+    sy = inv[:, 1, 0] * xs + inv[:, 1, 1] * ys + inv[:, 1, 2]
+
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    # far-off samples (a degenerate matrix) stay representable as indices
+    x0i = x0.clamp(-2.0, w + 1.0).to(torch.int64)
+    y0i = y0.clamp(-2.0, h + 1.0).to(torch.int64)
+    flat = ims.to(torch.float32).reshape(n, h * w)
+
+    def tap(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        val = torch.gather(flat, 1, idx.reshape(n, -1)).reshape(n, oh, ow)
+        return torch.where(valid, val, torch.full_like(val, fill))
+
+    v00 = tap(y0i, x0i)
+    v01 = tap(y0i, x0i + 1)
+    v10 = tap(y0i + 1, x0i)
+    v11 = tap(y0i + 1, x0i + 1)
+    out = (1 - fy) * ((1 - fx) * v00 + fx * v01) + fy * (
+        (1 - fx) * v10 + fx * v11
+    )
+    return out[0] if single else out

@@ -201,3 +201,26 @@ def test_matches_from_samples_equal():
             samples, 3, jrois.Roi(4, 6, 10, 10), 2.0, features
         )
         assert got == want and len(got["w"]) == 3
+
+
+@pytest.mark.parametrize("name", ["OrbParams", "SurfParams", "MatchParams"])
+def test_feature_parameter_classes_equal(name):
+    """Own copies of the detector and matcher parameter classes: the same
+    fields, defaults and config keys."""
+    jc, tc = getattr(jcfg, name), getattr(tcfg, name)
+    assert _plain(jc()) == _plain(tc())
+    assert [f.name for f in dataclasses.fields(jc)] == [
+        f.name for f in dataclasses.fields(tc)]
+    args = jcfg.load_job(EXAMPLE)
+    overrides = {"nfeatures": 700, "scaleFactor": 1.3, "nlevels": 5,
+                 "edgeThreshold": 20, "firstLevel": 1, "WTA_K": 3,
+                 "patchSize": 25, "fastThreshold": 9,
+                 "blurForDescriptor": 1, "hessianThreshold": 1600,
+                 "nOctaves": 3, "nOctaveLayers": 3, "extended": "true",
+                 "keypointsRatio": 0.02, "upright": 1, "ratio": 0.7,
+                 "homo": 8, "ransac": 2.5}
+    for im in ({}, overrides):
+        want, got = jc.from_config(im, args), tc.from_config(im, args)
+        assert _plain(want) == _plain(got)
+        assert hash(got) == hash(tc.from_config(im, args))  # a group key
+    assert _plain(tc.from_config(overrides, {})) != _plain(tc())

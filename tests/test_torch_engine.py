@@ -486,3 +486,295 @@ def test_prefetch_is_wired_into_the_runners(tmp_path, monkeypatch):
     trn.run_job(job(), device="cpu", loader=tbr.FrameCache()._loader)
     assert len(made) == 2
     assert tpf.make_prefetch_loader({"images": []}) is None
+
+
+# --- feature pre-alignment ---------------------------------------------------
+
+FEATURE_ARGS = {"features": 2, "hessianThreshold": 30, "ratio": 0.85}
+
+
+def _interior(p, roi_rows, margin=12):
+    """p (2, n) full-res: at least ``margin`` px inside its strip and the
+    frame. The feature branch resamples the map by the affine with a
+    constant border, so a sample near its ROI's border reads the fill."""
+    ok = np.zeros(p.shape[1], bool)
+    for lo, hi in roi_rows:
+        ok |= (p[1] >= lo + margin) & (p[1] < hi - margin)
+    return ok & (p[0] >= margin) & (p[0] < SRC_W - margin)
+
+
+def _feature_errors(sink, job):
+    """Error of every interior q against p + dz * (2.2, -1.2): with
+    features on, q is the absolute map."""
+    dz = {(im["pId"], im["qId"]): im["dz"] for im in job["images"]}
+    rows = [(0, STRIP / SCALE), (SRC_H - STRIP / SCALE, SRC_H)]
+    errs = []
+    for ms in sink.match_sets:
+        m = ms["matches"]
+        p = np.asarray(m["p"], np.float64)
+        d = np.asarray(m["q"], np.float64) - p
+        k = dz[(ms["pId"], ms["qId"])]
+        e = np.hypot(d[0] - k * DX_STEP, d[1] - k * DY_STEP)
+        errs.append(e[_interior(p, rows)])
+    return np.concatenate(errs)
+
+
+@pytest.fixture(scope="module")
+def feature_runs(frames):
+    """The same 8-pair feature job through both packages' device paths."""
+    out = {}
+    for name, run, kw in (
+        ("port", tbr.run_job_batched, {"device": "cpu"}),
+        ("jax", jbr.run_job_batched,
+         {"mesh": make_pair_mesh(n_pairs_axis=1, n_rows_axis=1)}),
+    ):
+        job = _job(sorted(frames), pair_batch=8, debug=False, **FEATURE_ARGS)
+        job["images"] = job["images"][:8]
+        sink = _ListSink()
+        stats = run(job, sink=sink, loader=lambda p, s: frames[p], **kw)
+        out[name] = (job, sink, stats)
+    return out
+
+
+def test_feature_groups_name_the_later_slice(feature_runs):
+    """Feature groups were a later slice's; they now run, batched, with the
+    JAX package's stats and counts, and detect each unique frame once."""
+    (job, psink, ps), (_, jsink, js) = feature_runs["port"], feature_runs["jax"]
+    for key in ("pairs", "batched", "sequential", "uploads", "matches",
+                "skipped", "resumed"):
+        assert ps[key] == js[key], key
+    assert ps["batched"] == 8 and ps["sequential"] == 0
+    assert ps["matches"] == 8 * 2 * 25
+    unique = {nm for im in job["images"] for nm in (im["p"], im["q"])}
+    assert ps["detected_frames"] == len(unique) < 16
+    assert "prealign_s" in ps["timing"] and "prealign_s" in js["timing"]
+    assert [(m["pId"], m["qId"]) for m in psink.match_sets] == [
+        (m["pId"], m["qId"]) for m in jsink.match_sets]
+    src = "".join(f.read_text() for f in (
+        __import__("pathlib").Path(tbr.__file__).parent.glob("*.py")))
+    assert "FEATURES_LATER" not in src and "NotImplementedError" not in src
+
+
+def test_feature_job_matches_within_a_pixel_in_both_packages(feature_runs):
+    """The JAX device path warps with its shift-compose approximation, the
+    port with the exact gather, and their RANSAC hypotheses differ: the two
+    are held by the match-error gate only. Interior samples: mean <= 1.0
+    full-res px on either side, the two means within 0.5 px."""
+    pe = _feature_errors(feature_runs["port"][1], feature_runs["port"][0])
+    je = _feature_errors(feature_runs["jax"][1], feature_runs["jax"][0])
+    assert len(pe) > 150 and len(je) > 150
+    assert pe.mean() <= 1.0 and je.mean() <= 1.0
+    assert np.median(pe) <= 0.75
+    assert abs(pe.mean() - je.mean()) <= 0.5
+
+
+def _fixed_aligner(affine):
+    def aligner(frame1, frame0, im_args, args):
+        return np.asarray(affine, np.float32)
+    return aligner
+
+
+@pytest.mark.parametrize("output_type,rois", [
+    ("flow", {"top": STRIP}), ("map", None), ("random_points", {"bottom": STRIP}),
+])
+def test_sequential_feature_path_equals_the_jax_package(frames, output_type,
+                                                        rois):
+    """solve_rois with the SAME affine handed to both packages (a caller's
+    aligner, so nothing depends on either's random hypotheses), frame 1
+    larger than frame 0, the `default` ROI where none is given: warped
+    frame, map composition and masks of the sequential path. Fields within
+    0.02 px (0.05 px at the few pixels beside the warp's border), masks
+    equal."""
+    from optflow_tpu.engine import pair as jpair
+    from optflow_tpu.engine.rois import resolve_rois as j_resolve
+    from optflow_tpu_torch.engine import pair as tpair
+    from optflow_tpu_torch.engine.rois import resolve_rois as t_resolve
+
+    names = sorted(frames)
+    f0 = frames[names[0]]
+    f1 = np.pad(frames[names[2]], ((0, 6), (0, 10)), mode="edge")
+    affine = np.array([[0.999, 0.012, -1.5], [-0.012, 0.999, 1.25]])
+    args = {"output_type": output_type, "features": 2, "scale": SCALE,
+            "debug": True, **FAST_TV}
+    if rois:
+        args["rois"] = rois
+    rows, cols = f0.shape
+    out = {}
+    for name, mod, resolve, kw in (
+        ("jax", jpair, j_resolve, {}),
+        ("port", tpair, t_resolve, {"device": "cpu"}),
+    ):
+        im_args = {}
+        res = mod.solve_rois(
+            f0, f1, resolve(im_args, args, rows, cols), im_args, dict(args),
+            aligner=_fixed_aligner(affine), write_outputs=False, **kw)
+        out[name] = (res, im_args)
+    (want, wargs), (got, gargs) = out["jax"], out["port"]
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert np.array_equal(got[key]["valid"], want[key]["valid"])
+        for f in ("flow_x", "flow_y"):
+            d = np.abs(got[key][f] - want[key][f])
+            assert np.quantile(d, 0.99) <= 0.02 and d.max() <= 0.05, (key, f)
+    if output_type == "random_points":
+        assert gargs["point_matches"]["w"] == wargs["point_matches"]["w"]
+        # debug: the host sampler is seeded alike, so the same pixels
+        assert np.abs(np.asarray(gargs["point_matches"]["p"])
+                      - np.asarray(wargs["point_matches"]["p"])).max() == 0
+        assert np.abs(np.asarray(gargs["point_matches"]["q"])
+                      - np.asarray(wargs["point_matches"]["q"])).max() <= 0.1
+
+
+@pytest.mark.parametrize("mode", ["features_map", "features_flow"])
+def test_feature_postprocessing_matches_jax_batched_solver(frames, mode):
+    """The host path's batched solve + composition with per-pair affines
+    against the JAX package's (which resamples with the exact affine_warp
+    there too): within 0.02 px, masks equal."""
+    names = sorted(frames)
+    roi = Roi(0, 0, SRC_W // 2, STRIP)
+    i0 = np.stack([frames[names[0]][roi.slices()],
+                   frames[names[1]][roi.slices()]])
+    i1 = np.stack([frames[names[1]][roi.slices()],
+                   frames[names[3]][roi.slices()]])
+    affs = np.array([[[1.0, 0.004, 0.7], [-0.004, 1.0, -0.4]],
+                     [[1.002, 0.0, -1.1], [0.0, 0.998, 0.3]]], np.float32)
+    jf, _ = jbr._batched_solver(
+        STRIP, SRC_W // 2, JaxParams(**FAST_TV), mode, None)
+    wx, wy, wv = (np.asarray(a) for a in jf(
+        jnp.asarray(i0), jnp.asarray(i1), jnp.asarray(affs)))
+    gx, gy, gv = tbr._batched_solver(TVL1Params(**FAST_TV), mode)(
+        torch.from_numpy(i0), torch.from_numpy(i1), torch.from_numpy(affs))
+    assert np.array_equal(gv.numpy(), wv)
+    assert np.abs(gx.numpy() - wx).max() <= 0.02
+    assert np.abs(gy.numpy() - wy).max() <= 0.02
+    with pytest.raises(ValueError, match="affines"):
+        tbr._batched_solver(TVL1Params(**FAST_TV), mode)(
+            torch.from_numpy(i0), torch.from_numpy(i1))
+
+
+def test_library_call_without_an_aligner_means_the_identity(frames):
+    """As in the JAX package: on the sequential path ``aligner=None`` aligns
+    by the identity (the CLI passes the real aligner); a batched group is
+    aligned by the device aligner either way, so only a pair that cannot
+    batch shows it. Same stats from the same call in both packages."""
+    from optflow_tpu_torch.engine.features_glue import default_aligner
+    from optflow_tpu_torch.engine import pair as tpair
+    from optflow_tpu_torch.engine.rois import resolve_rois
+
+    names = sorted(frames)
+    f0, f1 = frames[names[0]], frames[names[1]]
+    args = {"output_type": "flow", "rois": {"top": STRIP}, **FEATURE_ARGS,
+            **FAST_TV}
+    rois = resolve_rois({}, args, *f0.shape)
+    none = tpair.solve_rois(f0, f1, rois, {}, dict(args), aligner=None,
+                            write_outputs=False, device="cpu")
+    ident = tpair.solve_rois(
+        f0, f1, rois, {}, dict(args), write_outputs=False, device="cpu",
+        aligner=_fixed_aligner([[1, 0, 0], [0, 1, 0]]))
+    real = tpair.solve_rois(f0, f1, rois, {}, dict(args),
+                            aligner=default_aligner, write_outputs=False,
+                            device="cpu")
+    assert np.array_equal(none["top"]["flow_x"], ident["top"]["flow_x"])
+    assert not np.array_equal(none["top"]["flow_x"], real["top"]["flow_x"])
+
+    def job():
+        j = _job(names, pair_batch=4, debug=False, **FEATURE_ARGS)
+        j["images"] = j["images"][:3]
+        # one pair that cannot batch: it takes the sequential path
+        j["images"][1]["rois"] = {
+            "custom": {"0": [8, 0, 64, 32], "1": [8, 0, 64, 32]}}
+        return j
+
+    ps = tbr.run_job_batched(job(), sink=_ListSink(),
+                             loader=lambda p, s: frames[p], device="cpu")
+    js = jbr.run_job_batched(
+        job(), sink=_ListSink(), loader=lambda p, s: frames[p],
+        mesh=make_pair_mesh(n_pairs_axis=1, n_rows_axis=1))
+    for key in ("pairs", "batched", "sequential", "uploads", "matches"):
+        assert ps[key] == js[key], key
+    assert (ps["batched"], ps["sequential"]) == (2, 1)
+    # a caller's host aligner keeps feature pairs off the batched path
+    ps = tbr.run_job_batched(
+        job(), sink=_ListSink(), loader=lambda p, s: frames[p], device="cpu",
+        aligner=_fixed_aligner([[1, 0, 0], [0, 1, 0]]))
+    assert (ps["batched"], ps["sequential"]) == (0, 3)
+
+
+def test_prefetch_hands_one_array_to_every_pair_that_reuses_a_frame(tmp_path):
+    """The frame dedup keys on id(array): the default loader must return the
+    SAME ndarray for a (path, scale) that several pairs of a group use, or
+    every pair would detect and upload its frames again."""
+    from optflow_tpu_torch.engine.prefetch import make_prefetch_loader
+    from optflow_tpu_torch.engine.runner import FrameCache
+
+    paths = _write_pngs(tmp_path, 4)
+    pairs = [(0, 1), (0, 2), (1, 2), (1, 3), (2, 3)]
+    job = {
+        "style": 1, "scale": 1.0, "output_type": "random_points",
+        "npoints": 5, "match_sink": "null", "rois": {"top": 32},
+        "pair_batch": 8, **FEATURE_ARGS, "nscales": 2, "warps": 1,
+        "iterations": 5,
+        "images": [{"p": paths[a], "q": paths[b], "pId": f"t{a}",
+                    "qId": f"t{b}", "pGroupId": f"{a}.0",
+                    "qGroupId": f"{b}.0"} for a, b in pairs],
+    }
+    loader = make_prefetch_loader(job)
+    cache = FrameCache(loader)
+    seen = {}
+    for a, b in pairs:
+        f0, f1 = cache.get_pair(paths[a], paths[b], 1.0)
+        assert seen.setdefault(a, f0) is f0 and seen.setdefault(b, f1) is f1
+    loader.close()
+    tasks = [tbr._Task(i, {}, seen[a], seen[b], {})
+             for i, (a, b) in enumerate(pairs)]
+    uniq, f0_idx, f1_idx = tbr._dedup_frames(tasks, len(tasks))
+    assert len(uniq) == 4
+    assert f0_idx.tolist() == [0, 0, 1, 1, 2] and f1_idx.tolist() == [1, 2, 2, 3, 3]
+    stats = tbr.run_job_batched(job, device="cpu")  # its own prefetch loader
+    assert stats["batched"] == 5 and stats["detected_frames"] == 4
+
+
+def test_cli_runs_feature_jobs_and_still_honours_no_features(tmp_path, capsys):
+    """The CLI passes the package's aligner: a job that asks for features
+    detects its frames (batched runner and, with pair_batch 1, the
+    sequential one, where the `default` ROI forces features by itself);
+    --no-features turns them off. Its `done:` line names the product's
+    kernels only."""
+    import json
+
+    from optflow_tpu_torch.cli import main as cli
+
+    paths = _write_pngs(tmp_path, 3)
+
+    def write(name, **kw):
+        job = {
+            "style": 1, "scale": 1.0, "output_type": "random_points",
+            "npoints": 5, "match_sink": "null", "nscales": 2, "warps": 1,
+            "iterations": 5, "hessianThreshold": 30,
+            "images": [{"p": paths[a], "q": paths[b], "pId": f"t{a}",
+                        "qId": f"t{b}", "pGroupId": f"{a}.0",
+                        "qGroupId": f"{b}.0"} for a, b in ((0, 1), (1, 2))],
+            **kw,
+        }
+        path = str(tmp_path / name)
+        with open(path, "w") as f:
+            json.dump(job, f)
+        return path
+
+    batched = write("b.json", features=2, rois={"top": 32}, pair_batch=2)
+    assert cli.main([batched, "--device", "cpu"]) == 0
+    done = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "'batched': 2" in done and "'detected_frames': 3" in done
+    assert "prealign_s" in done
+    assert "'kernel_launches': {'tvl1_level_solve': 0, " \
+        "'tvl1_blocked_level_solve': 0}" in done
+    assert cli.main([batched, "--device", "cpu", "--no-features"]) == 0
+    done = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "'batched': 2" in done and "'detected_frames': 0" in done
+    assert "prealign_s" not in done
+    # no ROI at all: the `default` ROI, pair by pair through run_job
+    sequential = write("s.json")
+    assert cli.main([sequential, "--device", "cpu"]) == 0
+    captured = capsys.readouterr()
+    assert "reverting to features even though it wasn't selected" in captured.err
+    assert "'pairs': 2" in captured.out.strip().splitlines()[-1]

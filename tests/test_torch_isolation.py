@@ -22,6 +22,14 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch.ops.tvl1_blocked_cuda\n"
         "import optflow_tpu_torch.ops.tvl1_chunk_cuda\n"
         "import optflow_tpu_torch.convert\n"
+        "import optflow_tpu_torch.engine.features_glue\n"
+        "import optflow_tpu_torch.features\n"
+        "import optflow_tpu_torch.features.align\n"
+        "import optflow_tpu_torch.features.patches\n"
+        "import optflow_tpu_torch.ops.tvl1_ablate_cuda\n"
+        "import optflow_tpu_torch.ops.smem_cap_cuda\n"
+        "import optflow_tpu_torch.tools.kernel_ablate\n"
+        "import optflow_tpu_torch.tools.smem_cap\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'optflow_tpu' or "
         "m.startswith('optflow_tpu.'))\n"
@@ -49,6 +57,12 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     assert len(files) > 20
     names = {f.name for f in files}
     assert {"tvl1_blocked_cuda.py", "tvl1_chunk_cuda.py", "prefetch.py"} <= names
+    rel = {str(f.relative_to(ROOT / "optflow_tpu_torch")) for f in files[:-1]}
+    assert {"features/align.py", "features/detect.py", "features/patches.py",
+            "features/descriptors.py", "features/match.py",
+            "features/ransac.py", "engine/features_glue.py",
+            "tools/kernel_ablate.py", "tools/smem_cap.py",
+            "ops/tvl1_ablate_cuda.py", "ops/smem_cap_cuda.py"} <= rel
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -59,13 +73,17 @@ def test_kernel_sources_are_cuda_sources_of_this_package():
     package's csrc/, which names the TPU kernel it replaces."""
     csrc = ROOT / "optflow_tpu_torch" / "csrc"
     stems = sorted(f.stem for f in csrc.glob("*.cu"))
-    assert stems == ["tvl1_blocked", "tvl1_chunk", "tvl1_level"]
+    assert stems == ["smem_cap", "tvl1_ablate", "tvl1_blocked", "tvl1_chunk",
+                     "tvl1_level"]
     smoke = (ROOT / "chip_smoke.py").read_text()
     for stem, body in (("tvl1_blocked", "_make_blocked_kernel"),
                        ("tvl1_chunk", "_make_kernel"),
-                       ("tvl1_level", "_make_fused_kernel")):
+                       ("tvl1_level", "_make_fused_kernel"),
+                       ("tvl1_ablate", "make_kernel"),
+                       ("smem_cap", "try_mb")):
         text = (csrc / f"{stem}.cu").read_text()
-        assert body in text and "tvl1_common.cuh" in text
+        assert body in text
+        assert ("tvl1_common.cuh" in text) == stem.startswith("tvl1_")
         assert f"optflow_tpu_torch/csrc/{stem}.cu" in smoke
         assert "torch/extension.h" not in text  # plain C interface, ctypes
 
@@ -76,14 +94,25 @@ def test_entry_points_default_to_the_gpu():
 
     from optflow_tpu_torch import convert
     from optflow_tpu_torch.cli import main as cli
-    from optflow_tpu_torch.engine import batch_runner, pair, runner
+    from optflow_tpu_torch.engine import (
+        batch_runner,
+        features_glue,
+        pair,
+        runner,
+    )
+    from optflow_tpu_torch.features import align
+    from optflow_tpu_torch.tools import kernel_ablate, smem_cap
 
     for fn in (batch_runner.run_job_batched, runner.run_job, pair.solve_rois,
                pair.solve_wrapper, convert.level_state_from_numpy,
-               convert.flow_from_numpy, convert.canvas_to_tensor):
+               convert.flow_from_numpy, convert.canvas_to_tensor,
+               convert.keypoints_from_numpy, convert.affine_from_numpy,
+               align.find_alignment, features_glue.default_aligner,
+               kernel_ablate.run_ablation, smem_cap.run_probe):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__name__
-    assert 'default="cuda"' in inspect.getsource(cli.main)
+    for main in (cli.main, kernel_ablate.main, smem_cap.main):
+        assert 'default="cuda"' in inspect.getsource(main)
 
 
 def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():

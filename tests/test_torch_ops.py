@@ -122,3 +122,53 @@ def test_warp_backward_matches_jax(rng, kind, amp):
             diff = np.abs(np.asarray(a) - b[k].numpy())
             scale = max(1.0, float(np.abs(np.asarray(a)).max()) / 255.0)
             assert diff.max() <= 1e-3 * scale, (name, diff.max())
+
+
+# --- the affine warp of feature pre-alignment --------------------------------
+
+AFFINES = np.array([
+    [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+    [[1.0, 0.0, 6.5], [0.0, 1.0, -4.25]],
+    [[0.9986, -0.0523, 5.0], [0.0523, 0.9986, 2.0]],  # 3 degrees
+    [[1.15, 0.02, -7.0], [-0.03, 0.9, 3.0]],
+    [[2.0, 4.0, 1.0], [1.0, 2.0, 0.0]],  # singular
+], np.float32)
+
+
+def test_invert_affine_matches_jax():
+    """1e-6 on entries of order 1-10: the same closed form, float32."""
+    want = np.stack([np.asarray(jwarp.invert_affine(jnp.asarray(a)))
+                     for a in AFFINES])
+    got = twarp.invert_affine(_t(AFFINES)).numpy()
+    assert got.shape == (5, 2, 3)
+    assert np.abs(got - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
+    assert not got[4].any()  # a singular matrix inverts to zeros
+    one = twarp.invert_affine(_t(AFFINES[2])).numpy()
+    assert np.array_equal(one, got[2])
+    both = np.vstack([AFFINES[3], [0, 0, 1]]) @ np.vstack([got[3], [0, 0, 1]])
+    assert np.abs(both - np.eye(3)).max() <= 1e-5
+
+
+@pytest.mark.parametrize("out_shape", [None, (40, 90), (70, 64)])
+def test_affine_warp_matches_jax(rng, out_shape):
+    """Tolerance 1e-4 on 0-255 frames: the same taps and weights; the
+    constant border (taps outside contribute the fill) included."""
+    ims = _batch(rng, 4, 48, 80)
+    for fill in (0.0, 7.0):
+        want = np.stack([
+            np.asarray(jwarp.affine_warp(
+                jnp.asarray(im), jnp.asarray(a), out_shape=out_shape,
+                fill=fill))
+            for im, a in zip(ims, AFFINES)
+        ])
+        got = twarp.affine_warp(
+            _t(ims), _t(AFFINES[:4]), out_shape=out_shape, fill=fill).numpy()
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-4
+        one = twarp.affine_warp(
+            _t(ims[1]), _t(AFFINES[1]), out_shape=out_shape, fill=fill)
+        assert np.abs(one.numpy() - want[1]).max() <= 1e-4
+    assert np.array_equal(
+        twarp.affine_warp(_t(ims[0]), _t(AFFINES[0])).numpy(), ims[0])
+    with pytest.raises(ValueError):
+        twarp.affine_warp(_t(ims), _t(AFFINES[:2]))
