@@ -31,8 +31,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            kernel libraries from optflow_tpu_torch/csrc
   kernels  each kernel against its plain version on the card, with
            tolerances; the blocked kernel also against the level kernel,
-           the ablation kernel's `full` variant against the chunk kernel
-           (bit for bit), the capacity probe at every size up to the
+           the ablation kernel at its tool's shape and count, its `full`
+           variant also against the chunk kernel (bit for bit), the capacity probe at every size up to the
            card's limit and one above it
   ablate   the ablation tool at (16, 256, 1024): microseconds per iteration
            of the six variants of the TV-L1 iteration
@@ -745,9 +745,10 @@ def kernels_chunk():
     return main_case
 
 def kernels_ablate():
-    """The ablation kernel (csrc/tvl1_ablate.cu): each of the six variants
-    against its plain version, and `full` against the chunk kernel with the
-    exit disabled, which it must equal bit for bit."""
+    """The ablation kernel (csrc/tvl1_ablate.cu) at the shapes its tool gives
+    it, (16, 256, 1024) and m = 50: each of the six variants against its
+    plain version, and `full` against the chunk kernel with the exit
+    disabled, which it must equal bit for bit."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
@@ -762,10 +763,12 @@ def kernels_ablate():
     from optflow_tpu_torch.tools.kernel_ablate import make_inputs
 
     dev = torch.device("cuda")
-    n, h, w = 4, 256, 1024
+    n, h, w = 16, 256, 1024
+    lo, hi = 50, 600  # the tool's two iteration counts
     ro, state = make_inputs(n, h, w, dev)  # the tool's inputs, from a seed
     # Same float32 arithmetic in another order (FMA contraction, the block
-    # sums), 16 iterations on values of order 1: as for the chunk kernel.
+    # sums) on values of order 1: as for the chunk kernel. With its divisions
+    # the iteration contracts, so the tolerance holds at any count.
     tol = 1e-4
     cases = []
     main_case = None
@@ -773,10 +776,9 @@ def kernels_ablate():
         # Without its divisions the iteration is no contraction: no_div
         # leaves the finite numbers within a few steps, and min_body stays
         # bounded but amplifies the last-bit differences between kernel and
-        # plain version (8e-5 after 2 steps, 1.0 after 16 at 0.02 % of the
-        # positions on an H100: `m16_max_abs_du` below). Both are compared
-        # after 2.
-        m = 16 if flags["div"] else 2
+        # plain version (`m50_max_abs_du` below). Both are compared after 2
+        # steps and only reported at the tool's count.
+        m = lo if flags["div"] else 2
         before = tvl1_ablate_chunks.launches
         ks, ke = tvl1_ablate_chunks(ro, state, m, h, w, **flags)
         torch.cuda.synchronize()
@@ -817,25 +819,36 @@ def kernels_ablate():
             fail(f"variant {name} has no error sum and must return ones")
         if name == "full":
             main_case = case
+            # the tool's other count, where the iteration has converged
+            ks, ke = tvl1_ablate_chunks(ro, state, hi, h, w, **flags)
+            ps, pe = tvl1_ablate_plain(ro, state, hi, h, w, **flags)
+            case[f"m{hi}_max_abs_du"] = max_abs_diff(ks, ps)
+            if not case[f"m{hi}_max_abs_du"] <= tol:
+                emit({"phase": "kernels", "cases": cases})
+                fail(f"ablation kernel, variant full at m = {hi}: state "
+                     f"differs by {case[f'm{hi}_max_abs_du']}")
         if name == "min_body":
-            # reported, not gated: how far the two have drifted after 16
-            ks, _ = tvl1_ablate_chunks(ro, state, 16, h, w, **flags)
-            ps, _ = tvl1_ablate_plain(ro, state, 16, h, w, **flags)
+            # reported, not gated: how far the two have drifted at the
+            # tool's count
+            ks, _ = tvl1_ablate_chunks(ro, state, lo, h, w, **flags)
+            ps, _ = tvl1_ablate_plain(ro, state, lo, h, w, **flags)
             drift = (ks - ps).abs()
-            case["m16_max_abs_du"] = float(drift.max())
-            case["m16_share_above_1e-3"] = float((drift > 1e-3).float().mean())
+            case[f"m{lo}_max_abs_du"] = float(drift.max())
+            case[f"m{lo}_share_above_1e-3"] = float(
+                (drift > 1e-3).float().mean())
         if name == "no_div":
-            # at the count of the others the state has left the finite
-            # numbers: kernel and plain version must agree on where
-            ks, _ = tvl1_ablate_chunks(ro, state, 16, h, w, **flags)
-            ps, _ = tvl1_ablate_plain(ro, state, 16, h, w, **flags)
+            # at the tool's count the state has left the finite numbers:
+            # kernel and plain version must agree on where
+            ks, _ = tvl1_ablate_chunks(ro, state, lo, h, w, **flags)
+            ps, _ = tvl1_ablate_plain(ro, state, lo, h, w, **flags)
             same = float((torch.isfinite(ks) == torch.isfinite(ps))
                          .float().mean())
-            case["m16_finite_share"] = float(torch.isfinite(ks).float().mean())
-            case["m16_finiteness_agrees_share"] = same
+            case[f"m{lo}_finite_share"] = float(
+                torch.isfinite(ks).float().mean())
+            case[f"m{lo}_finiteness_agrees_share"] = same
             if not same >= 0.99:
                 emit({"phase": "kernels", "cases": cases})
-                fail(f"no_div at m = 16: kernel and plain version agree on "
+                fail(f"no_div at m = {lo}: kernel and plain version agree on "
                      f"finiteness at only {same} of the positions")
 
     # `full` is the chunk kernel's tile mode with the exit disabled: two
@@ -852,7 +865,7 @@ def kernels_ablate():
     errs_vs_chunk = float(
         ((fe[:, 0] - ce.sum(1)).abs() / ce.sum(1).abs()).max())
     # the last launch of a call is the short one: m = 50 ends on 2
-    ls, _ = tvl1_ablate_chunks(ro, state, 50, h, w, **VARIANTS["full"])
+    ls, _ = tvl1_ablate_chunks(ro, state, lo, h, w, **VARIANTS["full"])
     cs = state
     for m in (8,) * 6 + (2,):
         cs, _ = tvl1_chunk(ro, cs, m, -1.0, params)

@@ -55,20 +55,25 @@ def main(argv=None) -> int:
 
     style = int(args.get("style", 1))
     if style == 1:
+        import functools
+
         from optflow_tpu_torch.engine.features_glue import default_aligner
+
+        # the package's aligner, on the device the solves run on
+        aligner = functools.partial(default_aligner, device=ns.device)
 
         with profiler_trace(ns.profile_dir):
             if int(args.get("pair_batch", 1)) > 1:
                 from optflow_tpu_torch.engine.batch_runner import run_job_batched
 
                 stats = run_job_batched(
-                    args, aligner=default_aligner, device=ns.device
+                    args, aligner=aligner, device=ns.device
                 )
             else:
                 from optflow_tpu_torch.engine.runner import run_job
 
                 stats = run_job(
-                    args, aligner=default_aligner, device=ns.device
+                    args, aligner=aligner, device=ns.device
                 )
         if ns.profile_dir:
             print(f"profiler trace written to {ns.profile_dir}")

@@ -43,6 +43,7 @@ import torch
 from optflow_tpu_torch.core.config import JobConfig, TVL1Params, resolve_features
 from optflow_tpu_torch.core.imgio import ImageReadError, write_float_tiff
 from optflow_tpu_torch.engine import device_group as dg
+from optflow_tpu_torch.engine.features_glue import is_default_aligner
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
 from optflow_tpu_torch.engine.prefetch import make_prefetch_loader
 from optflow_tpu_torch.engine.pair import (
@@ -198,8 +199,8 @@ def run_job_batched(
     (it must return the same array for a repeated key: array identity keys
     the device frame cache and the once-per-frame detection).
 
-    ``aligner=None`` and ``default_aligner`` both let feature groups batch
-    through the device aligner; any other aligner is a host function and
+    ``aligner=None`` and ``default_aligner`` (or a ``functools.partial`` of
+    it) both let feature groups batch through the device aligner; any other aligner is a host function and
     sends its pairs down the sequential path, where ``None`` means the
     identity — the JAX package's behaviour, kept so that the same call
     gives the same stats."""
@@ -207,9 +208,7 @@ def run_job_batched(
     device = torch.device(device)
     # a caller-supplied host aligner forces feature pairs onto the
     # sequential path so its behavior is preserved
-    can_batch_features = aligner is None or getattr(
-        aligner, "__name__", ""
-    ) == "default_aligner"
+    can_batch_features = aligner is None or is_default_aligner(aligner)
     if pair_batch is None:
         pair_batch = int(args.get("pair_batch", 8))
     prefetch = None

@@ -18,7 +18,14 @@ from optflow_tpu_torch.features.align import find_alignment
 
 
 def default_aligner(frame1, frame0, im_args, args, device="cuda") -> np.ndarray:
-    """The package's own aligner. The engine recognises it by its name: it
-    passes the solve's ``device``, and the batched runner replaces it by the
-    batched device aligner for whole groups."""
+    """The package's own aligner. The engine calls an aligner with four
+    arguments, so a caller binds another device with
+    ``functools.partial(default_aligner, device=...)``, as the CLI does; the
+    batched runner replaces either by the batched device aligner for whole
+    groups."""
     return find_alignment(frame1, frame0, im_args, args, device=device)
+
+
+def is_default_aligner(aligner) -> bool:
+    """True for ``default_aligner`` and for a ``functools.partial`` of it."""
+    return getattr(aligner, "func", aligner) is default_aligner

@@ -31,7 +31,7 @@ Deviations from the reference, shared with the JAX package:
 As in the JAX package, ``aligner=None`` means NO alignment on this
 sequential path: a pair that takes the feature branch is warped by the
 identity and composed with it. The CLI passes
-``engine.features_glue.default_aligner``.
+``engine.features_glue.default_aligner`` bound to its ``--device``.
 """
 
 from __future__ import annotations
@@ -240,14 +240,8 @@ def solve_rois(
                 )
             if warped_frame1 is None:
                 if aligner is not None:
-                    # the package's own aligner runs where the solve runs
-                    kw = (
-                        {"device": device}
-                        if getattr(aligner, "__name__", "") == "default_aligner"
-                        else {}
-                    )
                     affine = np.asarray(
-                        aligner(frame1, frame0, im_args, args, **kw),
+                        aligner(frame1, frame0, im_args, args),
                         dtype=np.float32,
                     )
                 warped_frame1 = _affine_warp_frame(

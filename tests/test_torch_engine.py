@@ -5,6 +5,7 @@ points are held by structure, validity and error against the known shift,
 not one by one."""
 
 import copy
+import functools
 
 import numpy as np
 import jax
@@ -672,8 +673,9 @@ def test_library_call_without_an_aligner_means_the_identity(frames):
         f0, f1, rois, {}, dict(args), write_outputs=False, device="cpu",
         aligner=_fixed_aligner([[1, 0, 0], [0, 1, 0]]))
     real = tpair.solve_rois(f0, f1, rois, {}, dict(args),
-                            aligner=default_aligner, write_outputs=False,
-                            device="cpu")
+                            aligner=functools.partial(default_aligner,
+                                                      device="cpu"),
+                            write_outputs=False, device="cpu")
     assert np.array_equal(none["top"]["flow_x"], ident["top"]["flow_x"])
     assert not np.array_equal(none["top"]["flow_x"], real["top"]["flow_x"])
 
@@ -698,6 +700,23 @@ def test_library_call_without_an_aligner_means_the_identity(frames):
         job(), sink=_ListSink(), loader=lambda p, s: frames[p], device="cpu",
         aligner=_fixed_aligner([[1, 0, 0], [0, 1, 0]]))
     assert (ps["batched"], ps["sequential"]) == (0, 3)
+
+
+def test_the_package_aligner_is_known_by_identity_not_by_name():
+    """A ``functools.partial`` of the package's aligner still batches; a
+    caller's function that merely shares its name is a host aligner."""
+    from optflow_tpu_torch.engine.features_glue import (
+        default_aligner as package_aligner,
+        is_default_aligner,
+    )
+
+    def default_aligner(frame1, frame0, im_args, args):
+        return np.eye(2, 3, dtype=np.float32)
+
+    assert is_default_aligner(package_aligner)
+    assert is_default_aligner(functools.partial(package_aligner, device="cpu"))
+    assert not is_default_aligner(default_aligner)
+    assert not is_default_aligner(functools.partial(default_aligner))
 
 
 def test_prefetch_hands_one_array_to_every_pair_that_reuses_a_frame(tmp_path):
