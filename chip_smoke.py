@@ -30,24 +30,33 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
   build    compile (one nvcc per source, together) and load the five
            kernel libraries from optflow_tpu_torch/csrc
   kernels  each kernel against its plain version on the card, with
-           tolerances; the blocked kernel also against the level kernel,
-           the ablation kernel at its tool's shape and count, its `full`
-           variant also against the chunk kernel (bit for bit), the capacity probe at every size up to the
-           card's limit and one above it
+           tolerances; the level kernel also against the blocked kernel and
+           against the per-iteration kernel it replaced (the library's
+           second entry point: bit for bit, and timed in turns old, new, new,
+           old); the chunk kernel's single chunk and its sweep entry; the
+           ablation kernel at its tool's shape and count, its `full` variant
+           also against the chunk kernel (bit for bit); the capacity probe
+           at every size up to the card's limit and one above it
   ablate   the ablation tool at (16, 256, 1024): microseconds per iteration
            of the six variants of the TV-L1 iteration
   smem_cap the capacity probe's table: sizes granted, occupancy, and the
            shared-memory constants the kernels rest on
   solve    tvl1_flow_batched at (16, 256, 1024), both EPE gates; then a
-           `levels` line: per-level kernel times of a 32-image solve
-  job      64 pairs through run_job_batched, match gate, launch count
+           `levels` line: per-level kernel times of a 32-image solve, the
+           steps each level took on the card and how full its grid was,
+           iterations computed against iterations counted, the launches
+           each level enqueued and, where the profiler can trace the card,
+           the kernels counted in a trace
+  job      64 pairs through run_job_batched, match gate, launch count; the
+           same job once more on the warm card
   cli      the same job (16 pairs) from PNG files through the CLI, when an
            image library (cv2 or PIL) is installed; else a printed skip
   section  tvl1_flow_batched at (4, 512, 1024) and (1, 1024, 1024) with a
            line naming the kernel that solved each level; then a `map` job
            of 8 full-section pairs and a `flow` job of 2 through
            run_job_batched, TIFFs written, read back and gated
-  level_api  tvl1_flow with the chunk-kernel level solver at 512x1024
+  level_api  tvl1_flow with the chunk-kernel level solver at 512x1024: one
+           sweep call per level and sweep
   features feature pre-alignment: the frame-deduplicated aligner on a
            chained stack of 17 strips with known affines (stage times), a
            job of 32 misaligned strip pairs with features on through
@@ -56,8 +65,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 every kernel's launches on the main path, its error against the plain
-version, its time, the plain version's time and its bound, and last
-``{"ok": true, "device": {...}}``.
+version, its time, the plain version's time and its bound, and the kernels
+and memory operations one call of its wrapper put on the card (tallied by the
+library where it enqueues them), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -225,28 +235,54 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_busy_ms(fn):
-    """Milliseconds the card spent inside kernels during ``fn()``: the sum of
-    every kernel's duration from a torch.profiler trace of the device. Set
+def trace_device(fn):
+    """What the card did during ``fn()``, from a torch.profiler trace of the
+    device: ``busy_ms``, the sum of every kernel's and copy's duration (set
     beside the untraced time of the same work it says how much of that time
-    the card was idle. Returns (ms or None, note): None when the profiler
-    cannot trace this machine's card."""
+    no kernel was running; a block that waits at a barrier inside a kernel
+    counts as busy); ``kernels``, kernel name -> times it was launched;
+    ``memops``, the memsets and copies. ``busy_ms`` is None, with the reason
+    in ``note``, when the profiler cannot trace this machine's card."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        total_us = sum(
-            getattr(e, "self_device_time_total", 0.0)
-            for e in prof.key_averages()
-        )
-    except RuntimeError as e:  # the tracer, not the port: report, go on
-        return None, f"torch.profiler failed: {e}"
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # the tracer, not the port: report, go on
+        return {"busy_ms": None, "kernels": {}, "memops": 0,
+                "note": f"torch.profiler failed: {e}"}
+    total_us = sum(e.self_device_time_total for e in rows)
     if total_us <= 0:
-        return None, "torch.profiler recorded no device time"
-    return total_us / 1e3, "sum of kernel durations, torch.profiler"
+        return {"busy_ms": None, "kernels": {}, "memops": 0,
+                "note": "torch.profiler recorded no device time"}
+
+    def is_memop(e):
+        return e.key.startswith(("Memset", "Memcpy"))
+
+    return {"busy_ms": total_us / 1e3,
+            "kernels": {e.key: e.count for e in rows if not is_memop(e)},
+            "memops": sum(e.count for e in rows if is_memop(e)),
+            "note": "device events of a torch.profiler trace"}
+
+
+def enqueued_launches(fn):
+    """Kernel launches and memory operations (memsets, copies) that the
+    package's libraries put on the card during one ``fn()``: (kernels,
+    memops), the difference of the tallies each library keeps where it
+    enqueues them. It needs no tracer, so it is the same on every machine;
+    PyTorch's own operations (none inside a kernel wrapper but allocations)
+    are not in it."""
+    from optflow_tpu_torch.ops._build import enqueued
+
+    k0, m0 = enqueued()
+    fn()
+    k1, m1 = enqueued()
+    return k1 - k0, m1 - m0
 
 
 def level_bound_ms(n, h, w, warps, total_iters):
@@ -280,18 +316,23 @@ def chunk_bound_ms(n, h, w, blocks, total_iters):
 
 
 def kernel_wrappers():
-    """name -> wrapper, for the launch counts."""
+    """name -> wrapper, for the launch counts. The chunk kernel has two:
+    one chunk a call, and a whole sweep a call."""
     from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
         tvl1_blocked_level_solve,
     )
     from optflow_tpu_torch.ops.smem_cap_cuda import smem_fill_mean
     from optflow_tpu_torch.ops.tvl1_ablate_cuda import tvl1_ablate_chunks
-    from optflow_tpu_torch.ops.tvl1_chunk_cuda import tvl1_chunk
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import (
+        tvl1_chunk,
+        tvl1_chunk_sweep,
+    )
     from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
 
     return {"tvl1_level_solve": tvl1_level_solve,
             "tvl1_blocked_level_solve": tvl1_blocked_level_solve,
             "tvl1_chunk": tvl1_chunk,
+            "tvl1_chunk_sweep": tvl1_chunk_sweep,
             "tvl1_ablate_chunks": tvl1_ablate_chunks,
             "smem_fill_mean": smem_fill_mean}
 
@@ -377,104 +418,238 @@ def phase_kernels(results):
     }
 
 
+def time_in_turns(old_fn, new_fn, reps=2):
+    """Two versions timed within one process on one card, in turns: old,
+    new, new, old. Returns (old ms, new ms), each the mean of its two
+    timings, and the four timings in order."""
+    order = (old_fn, new_fn, new_fn, old_fn)
+    ms = [time_cuda(fn, reps) for fn in order]
+    return (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2, ms
+
+
 def kernels_level():
-    """The level kernel (csrc/tvl1_level.cu) against its plain version."""
+    """The level kernel (csrc/tvl1_level.cu) against its plain version, the
+    blocked kernel and the per-iteration kernel it replaces (the library's
+    second entry point), which is also timed beside it in turns."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
+        tvl1_blocked_level_solve,
+    )
     from optflow_tpu_torch.ops.tvl1_cuda import (
+        LEVEL_SCHEDULE,
+        _launch_level,
+        level_max_steps,
         tvl1_level_solve,
         tvl1_level_solve_plain,
+        tvl1_level_solve_schedule_plain,
     )
+
+    def replaced(*args):
+        """The replaced kernel: (u1, u2, iters)."""
+        return _launch_level(*args, per_iteration=True)[:3]
+
+    def flow_diff(a, b):
+        return max(max_abs_diff(a[0], b[0]), max_abs_diff(a[1], b[1]))
 
     dev = torch.device("cuda")
     # Tolerance of the fixed-count comparison: kernel and plain version do
-    # the same float32 arithmetic in another order (nvcc contracts to FMA,
-    # the block sums differ), and 50 accumulating iterations amplify the
-    # last-bit differences.
+    # the same float32 arithmetic in another order (nvcc contracts to FMA),
+    # and 50 accumulating iterations amplify the last-bit differences. The
+    # replaced kernel and the blocked kernel share the device code: 0.0.
     tol_fixed = 1e-3
     fixed = TVL1Params(nscales=1, warps=2, iterations=25, epsilon=0.0)
+    full = TVL1Params(nscales=1)
     cases = []
     main_case = None
     for shape in ((3, 37, 53), (32, 43, 171), (32, 256, 1024)):
         n, h, w = shape
-        i0, i1, u1, u2 = (
+        args = tuple(
             torch.from_numpy(a).to(dev)
             for a in make_level_inputs(n, h, w, seed=11 + h)
         )
         before = tvl1_level_solve.launches
-        k1, k2, kit = tvl1_level_solve(i0, i1, u1, u2, fixed)
-        torch.cuda.synchronize()
-        p1, p2, pit = tvl1_level_solve_plain(i0, i1, u1, u2, fixed)
+        k = tvl1_level_solve(*args, fixed)
+        steps, grid = tvl1_level_solve.last_steps[:2].tolist()
         torch.cuda.synchronize()
         if tvl1_level_solve.launches != before + 1:
             fail("the wrapper did not count its launch")
-        diff = max(float((k1 - p1).abs().max()), float((k2 - p2).abs().max()))
-        finite = bool(torch.isfinite(k1).all() and torch.isfinite(k2).all())
-        moved = float((k1 - u1).abs().max())
-        iters_equal = bool((kit == pit).all())
-        kernel_ms = time_cuda(
-            lambda: tvl1_level_solve(i0, i1, u1, u2, fixed), 3
-        )
-        plain_ms = time_cuda(
-            lambda: tvl1_level_solve_plain(i0, i1, u1, u2, fixed), 2
-        )
-        total_iters = int(kit.sum())
+        p = tvl1_level_solve_plain(*args, fixed)
+        old = replaced(*args, fixed)
+        blocked = tvl1_blocked_level_solve(*args, fixed)
+        torch.cuda.synchronize()
+        if tvl1_level_solve.launches != before + 1:
+            fail("the replaced kernel's entry point counted as a launch")
+        diff = flow_diff(k, p)
+        finite = bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all())
+        moved = max_abs_diff(k[0], args[2])
+        iters_equal = bool((k[2] == p[2]).all() and (k[2] == old[2]).all())
+        old_ms, kernel_ms, turns = time_in_turns(
+            lambda: replaced(*args, fixed),
+            lambda: tvl1_level_solve(*args, fixed))
+        plain_ms = time_cuda(lambda: tvl1_level_solve_plain(*args, fixed), 2)
+        total_iters = int(k[2].sum())
         bound, bound_by = level_bound_ms(n, h, w, fixed.warps, total_iters)
+        launched, memops = enqueued_launches(
+            lambda: tvl1_level_solve(*args, fixed))
+        old_launched, old_memops = enqueued_launches(
+            lambda: replaced(*args, fixed))
         case = {
             "kernel": "tvl1_level_solve", "shape": list(shape),
             "warps": fixed.warps, "iterations": fixed.iterations,
             "epsilon": 0.0, "max_abs_du": diff, "tolerance": tol_fixed,
+            "max_abs_du_vs_replaced_kernel": flow_diff(k, old),
+            "max_abs_du_vs_blocked_kernel": flow_diff(k, blocked),
             "flow_moved_px": moved, "iters_equal": iters_equal,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms, "replaced_kernel_ms": old_ms,
+            "ms_old_new_new_old": turns, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
-            "launches": tvl1_level_solve.launches - before,
+            # kernels and memsets/copies one call put on the card, tallied
+            # by the library; the steps its sweeps took inside the kernel,
+            # and the blocks of its grid, as the kernel reports them
+            "device_launches": launched, "device_memops": memops,
+            "grid_steps": steps, "grid_blocks": grid,
+            "grid_steps_at_most":
+            level_max_steps(fixed.warps, fixed.iterations),
+            "replaced_kernel_device_launches": old_launched,
+            "replaced_kernel_device_memops": old_memops,
         }
         cases.append(case)
         if not finite or not diff <= tol_fixed:
             emit({"phase": "kernels", "cases": cases})
             fail(f"kernel differs from its plain version at {shape}: "
                  f"max|du| {diff} > {tol_fixed}")
+        if case["max_abs_du_vs_replaced_kernel"] != 0.0 \
+                or case["max_abs_du_vs_blocked_kernel"] != 0.0:
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"at epsilon 0 the level kernel must equal the kernel it "
+                 f"replaces and the blocked kernel bit for bit at {shape}")
         if not iters_equal or moved < 1e-3:
             emit({"phase": "kernels", "cases": cases})
             fail(f"kernel iteration count or flow update wrong at {shape}")
         if shape == (32, 256, 1024):
             main_case = case
-        del i0, i1, u1, u2, k1, k2, p1, p2
 
-    # (c) the per-image epsilon exit at full counts. The error sums are
-    # accumulated in another order on the card (atomics), so an image may
-    # cross its threshold a few iterations earlier or later: counts must
-    # agree within 3% + 3 iterations, and the solutions within 0.01 px of
-    # mean end-point error.
-    full = TVL1Params(nscales=1)
+        # full counts with the per-image exit, epsilon 0.01: old and new in
+        # turns; a rerun must give the same bits (no atomics). The counts
+        # against the replaced kernel's, whose error sums are taken with
+        # atomics in another order, and, at the small shape, against the
+        # plain emulation of the kernel's control flow, which adds its sums
+        # in PyTorch's order without FMA: an image within rounding of its
+        # threshold may stop an iteration apart, so no image more than 1
+        # apart and at most one image in 16 apart at all (none was seen);
+        # where the counts agree the emulation must have computed the same
+        # iterations, speculation and replay included.
+        if shape == (3, 37, 53):
+            continue
+        k = tvl1_level_solve(*args, full)
+        work = tvl1_level_solve.last_work
+        steps, grid = tvl1_level_solve.last_steps[:2].tolist()
+        again = tvl1_level_solve(*args, full)
+        old = replaced(*args, full)
+        torch.cuda.synchronize()
+        old_ms, kernel_ms, turns = time_in_turns(
+            lambda: replaced(*args, full),
+            lambda: tvl1_level_solve(*args, full))
+        launched, memops = enqueued_launches(
+            lambda: tvl1_level_solve(*args, full))
+        old_launched, old_memops = enqueued_launches(
+            lambda: replaced(*args, full))
+        eps_case = {
+            "kernel": "tvl1_level_solve", "shape": list(shape),
+            "warps": full.warps, "iterations": full.iterations,
+            "epsilon": full.epsilon, "iters_sum": int(k[2].sum()),
+            "iters_computed_sum": int(work[0].sum()),
+            "iters_min_max": [int(k[2].min()), int(k[2].max())],
+            "iters_equal_replaced_kernel": bool((k[2] == old[2]).all()),
+            "max_abs_du_vs_replaced_kernel": flow_diff(k, old),
+            "rerun_bit_identical": torch.equal(k[0], again[0])
+            and torch.equal(k[1], again[1]) and torch.equal(k[2], again[2]),
+            "kernel_ms": kernel_ms, "replaced_kernel_ms": old_ms,
+            "ms_old_new_new_old": turns,
+            "device_launches": launched, "device_memops": memops,
+            "grid_steps": steps, "grid_blocks": grid,
+            "grid_steps_at_most":
+            level_max_steps(full.warps, full.iterations),
+            "replaced_kernel_device_launches": old_launched,
+            "replaced_kernel_device_memops": old_memops,
+        }
+        against = {"replaced_kernel": old[2]}
+        if n * h * w <= 1 << 18:
+            e = tvl1_level_solve_schedule_plain(*args, full)
+            against["emulation"] = e[2]
+            agree = k[2] == e[2]
+            eps_case["iters_equal_emulation"] = bool(agree.all())
+            eps_case["computed_equal_emulation"] = torch.equal(work[0], e[3])
+            eps_case["computed_equal_emulation_where_counts_agree"] = \
+                torch.equal(work[0][agree], e[3][agree])
+            eps_case["max_abs_du_vs_emulation"] = flow_diff(k, e)
+            eps_case["tolerance_vs_emulation"] = tol_fixed
+        cases.append(eps_case)
+        for name, counts in against.items():
+            apart = (k[2] - counts).abs()
+            eps_case[f"iters_apart_{name}_max_images"] = [
+                int(apart.max()), int((apart > 0).sum())]
+            if int(apart.max()) > 1 or int((apart > 0).sum()) > n // 16:
+                emit({"phase": "kernels", "cases": cases})
+                fail(f"iteration counts at {shape} differ from the {name}'s: "
+                     f"{k[2].tolist()} vs {counts.tolist()}")
+        if not eps_case.get("computed_equal_emulation_where_counts_agree",
+                            True):
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"iterations computed at {shape} differ from the "
+                 f"emulation's: {work[0].tolist()} vs {e[3].tolist()}")
+        if not eps_case.get("max_abs_du_vs_emulation", 0.0) <= tol_fixed:
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"flow at {shape} differs from the emulation's by "
+                 f"{eps_case['max_abs_du_vs_emulation']}")
+        if not eps_case["rerun_bit_identical"]:
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"two runs of the level kernel differ at {shape}")
+        if not bool((work[0] >= k[2]).all()):
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"fewer iterations computed than counted at {shape}")
+        del k, p, old, blocked, again, args
+
+    # The per-image exit against the plain version on four images that stop
+    # at different counts. Kernel and plain version sum every iteration's
+    # error in another order and differ in the last bits of the flow (FMA),
+    # so an image within rounding of its threshold could stop an iteration
+    # apart. The sums are added in a fixed order and equal counts were seen
+    # in every run on an H100, so equal counts are the gate (the replaced
+    # kernel's atomics were given 3% + 3): a replay from the wrong buffer or
+    # one iteration short shows here. Solutions within 0.01 px of mean
+    # end-point error, the flow within 1e-3 px at every pixel.
     n, h, w = 4, 256, 1024
     i0, i1, u1, u2, truth_x = eps_exit_inputs(dev, h, w)
     k1, k2, kit = tvl1_level_solve(i0, i1, u1, u2, full)
+    work = tvl1_level_solve.last_work
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    k1, k2, kit = tvl1_level_solve(i0, i1, u1, u2, full)
-    torch.cuda.synchronize()
-    eps_kernel_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
+    old_ms, eps_kernel_ms, turns = time_in_turns(
+        lambda: replaced(i0, i1, u1, u2, full),
+        lambda: tvl1_level_solve(i0, i1, u1, u2, full))
+    eps_plain_ms = time_cuda(
+        lambda: tvl1_level_solve_plain(i0, i1, u1, u2, full), 1)
     p1, p2, pit = tvl1_level_solve_plain(i0, i1, u1, u2, full)
-    torch.cuda.synchronize()
-    eps_plain_ms = (time.perf_counter() - t0) * 1e3
     truth_y = -0.6 * truth_x
 
     def epe(a, b):
         return float(torch.hypot(a - truth_x, b - truth_y).mean())
 
     kit_l, pit_l = kit.tolist(), pit.tolist()
-    margin = [max(3, int(0.03 * p) + 3) for p in pit_l]
+    margin = [0] * n
     epe_k, epe_p = epe(k1, k2), epe(p1, p2)
     eps_case = {
         "kernel": "tvl1_level_solve", "shape": [n, h, w], "warps": full.warps,
         "iterations": full.iterations, "epsilon": full.epsilon,
         "iters_kernel": kit_l, "iters_plain": pit_l, "iters_margin": margin,
+        "iters_computed": work[0].tolist(),
         "epe_kernel": epe_k, "epe_plain": epe_p, "epe_diff_tolerance": 0.01,
         "mean_abs_du": float(((k1 - p1).abs() + (k2 - p2).abs()).mean() / 2),
-        "kernel_ms": eps_kernel_ms, "plain_ms": eps_plain_ms,
+        "max_abs_du": flow_diff((k1, k2), (p1, p2)), "tolerance": tol_fixed,
+        "kernel_ms": eps_kernel_ms, "replaced_kernel_ms": old_ms,
+        "ms_old_new_new_old": turns, "plain_ms": eps_plain_ms,
     }
     cases.append(eps_case)
     emit({"phase": "kernels", "cases": cases})
@@ -484,6 +659,14 @@ def kernels_level():
         fail(f"images were expected to stop at different counts: {kit_l}")
     if not abs(epe_k - epe_p) <= 0.01:
         fail(f"EPE of kernel {epe_k} and plain version {epe_p} differ")
+    if not eps_case["max_abs_du"] <= tol_fixed:
+        fail(f"flow of kernel and plain version differ by "
+             f"{eps_case['max_abs_du']} px at equal counts")
+    if any(not 0 <= c - i <= 2 * max(LEVEL_SCHEDULE) * full.warps
+           for c, i in zip(work[0].tolist(), kit_l)):
+        fail(f"iterations computed {work[0].tolist()} against counted "
+             f"{kit_l}: at most one chunk run past the exit and one replay "
+             f"a sweep")
     return main_case
 
 
@@ -547,6 +730,8 @@ def kernels_blocked():
         plain_ms = time_cuda(
             lambda: tvl1_blocked_level_solve_plain(i0, i1, u1, u2, fixed), 2)
         bound, bound_by = level_bound_ms(n, h, w, fixed.warps, int(kit.sum()))
+        launched, memops = enqueued_launches(
+            lambda: tvl1_blocked_level_solve(i0, i1, u1, u2, fixed))
         case = {
             "kernel": "tvl1_blocked_level_solve", "shape": list(shape),
             "warps": fixed.warps, "iterations": fixed.iterations,
@@ -556,12 +741,8 @@ def kernels_blocked():
             "iters": kit.tolist(), "kernel_ms": ms,
             "level_kernel_ms": a_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
-            # device launches of one call: 2 set-up, per sweep 1 warp and C
-            # chunks, 1 output; the level kernel: one per iteration
-            "device_launches": 3 + fixed.warps * (
-                1 + -(-fixed.iterations // BLOCKED_K)),
-            "level_kernel_device_launches":
-            3 + fixed.warps * (2 + fixed.iterations),
+            # kernels and memsets/copies of one call, tallied by the library
+            "device_launches": launched, "device_memops": memops,
         }
         cases.append(case)
         if not finite or not diff <= tol or not diff_a <= tol:
@@ -625,9 +806,12 @@ def kernels_blocked():
 
 
 def kernels_chunk():
-    """The chunk kernel (csrc/tvl1_chunk.cu) against its plain version: tile
-    mode at a full section's finest level, one-block mode at the coarsest
-    level of a strip with the in-kernel exit."""
+    """The chunk kernel (csrc/tvl1_chunk.cu) against its plain version. One
+    chunk a call: tile mode at a full section's finest level, one-block mode
+    at the coarsest level of a strip with the in-kernel exit. A sweep a call,
+    the entry the per-level API runs: at that API's finest level (1, 512,
+    1024), which is the case the `kernels` line reports, at (4, 512, 1024)
+    and in one block."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
@@ -636,6 +820,8 @@ def kernels_chunk():
         chunk_geometry,
         tvl1_chunk,
         tvl1_chunk_plain,
+        tvl1_chunk_sweep,
+        tvl1_chunk_sweep_plain,
     )
     from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
 
@@ -679,25 +865,29 @@ def kernels_chunk():
     plain_ms = time_cuda(
         lambda: tvl1_chunk_plain(ro, state, CHUNK_K, -1.0, params), 2)
     bound, bound_by = chunk_bound_ms(n, h, w, geo.blocks, n * CHUNK_K)
-    main_case = {
-        "kernel": "tvl1_chunk", "mode": "tiles", "shape": [n, h, w],
+    launched, memops = enqueued_launches(
+        lambda: tvl1_chunk(ro, state, CHUNK_K, -1.0, params))
+    chunk_case = {
+        "kernel": "tvl1_chunk", "entry": "tvl1_chunk", "mode": "tiles",
+        "shape": [n, h, w],
         "m": CHUNK_K, "blocks": geo.blocks, "max_abs_du": diff,
         "tolerance": 1e-4, "errs_max_rel": err_rel, "errs_tolerance": 1e-3,
         "iters": iters.tolist(), "stopped_image_passed_through":
         bool(torch.equal(ks[2], state[2])) and float(ke[2].abs().max()) == 0,
         "state_moved": max_abs_diff(ks[0], state[0]),
+        "device_launches": launched, "device_memops": memops,
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by,
     }
-    cases.append(main_case)
+    cases.append(chunk_case)
     if not (diff <= 1e-4 and err_rel <= 1e-3
             and bool(torch.isfinite(ks).all())):
         emit({"phase": "kernels", "cases": cases})
         fail(f"chunk kernel (tiles) differs from its plain version: state "
              f"{diff}, errs relative {err_rel}")
-    if not (main_case["stopped_image_passed_through"]
+    if not (chunk_case["stopped_image_passed_through"]
             and iters.tolist() == piters.tolist() == [8, 8, 0, 8]
-            and main_case["state_moved"] > 1e-3):
+            and chunk_case["state_moved"] > 1e-3):
         emit({"phase": "kernels", "cases": cases})
         fail("chunk kernel (tiles): pass-through, iteration counts or "
              "update wrong")
@@ -742,7 +932,70 @@ def kernels_chunk():
              f"{diff}")
     if not bool(((ke[:, 0] <= thresh) & (pe[:, 0] <= thresh)).all()):
         fail("an image left its loop above the threshold")
+    del ro, state, ks, ps
+
+    # The sweep entry: up to 300 iterations with the level solve's exit, all
+    # chunks enqueued by one call, against the loop over the plain version.
+    # The device adds a chunk's tile sums in another order than the plain
+    # version's errs.sum(dim=1), so an image within rounding of its threshold
+    # may stop one chunk apart: counts equal or one chunk (tiles) / one
+    # iteration (one block) apart, state within 1e-4 where they agree.
+    main_case = None
+    for n, h, w in ((1, SECTION_H, SECTION_W), (4, SECTION_H, SECTION_W),
+                    (32, 34, 137)):
+        ro, state = chunk_inputs(n, h, w, seed=83 + h)
+        geo = chunk_geometry(h, w)
+        thresh = params.epsilon ** 2 * h * w
+        step = 1 if geo.one_block else CHUNK_K
+        iters = torch.zeros(n, dtype=torch.int32, device=dev)
+        piters = torch.zeros_like(iters)
+        before = tvl1_chunk_sweep.launches
+        ks, ke = tvl1_chunk_sweep(ro, state, params.iterations, thresh,
+                                  params, iters=iters)
+        torch.cuda.synchronize()
+        if tvl1_chunk_sweep.launches != before + 1:
+            fail("the sweep wrapper did not count its launch")
+        ps, pe = tvl1_chunk_sweep_plain(ro, state, params.iterations, thresh,
+                                        params, iters=piters)
+        same = iters == piters
+        diff = max_abs_diff(ks[same], ps[same]) if bool(same.any()) else None
+        ms = time_cuda(lambda: tvl1_chunk_sweep(
+            ro, state, params.iterations, thresh, params), 3)
+        plain_ms = time_cuda(lambda: tvl1_chunk_sweep_plain(
+            ro, state, params.iterations, thresh, params), 1)
+        bound, bound_by = chunk_bound_ms(n, h, w, geo.blocks, int(iters.sum()))
+        launched, memops = enqueued_launches(lambda: tvl1_chunk_sweep(
+            ro, state, params.iterations, thresh, params))
+        case = {
+            "kernel": "tvl1_chunk", "entry": "tvl1_chunk_sweep",
+            "mode": "one block" if geo.one_block else "tiles",
+            "shape": [n, h, w], "iterations": params.iterations,
+            "thresh": thresh, "max_abs_du": diff, "tolerance": 1e-4,
+            "iters_kernel": iters.tolist(), "iters_plain": piters.tolist(),
+            "iters_may_differ_by": step,
+            # kernels and memsets/copies of one call, tallied by the library
+            "device_launches": launched, "device_memops": memops,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by,
+        }
+        cases.append(case)
+        emit({"phase": "kernels", "cases": [case]})
+        if not bool(((iters - piters).abs() <= step).all()):
+            fail(f"chunk sweep at {(n, h, w)} ran {iters.tolist()} "
+                 f"iterations, its plain version {piters.tolist()}")
+        if diff is None or not diff <= 1e-4 \
+                or not bool(torch.isfinite(ks).all()):
+            fail(f"chunk sweep at {(n, h, w)} differs from its plain "
+                 f"version by {diff}")
+        if not (0 < int(iters.min()) and int(iters.max()) < params.iterations):
+            fail(f"chunk sweep at {(n, h, w)}: the exit was not taken: "
+                 f"{iters.tolist()}")
+        if main_case is None:
+            main_case = case
+        del ro, state, ks, ps
+    main_case["single_chunk"] = chunk_case
     return main_case
+
 
 def kernels_ablate():
     """The ablation kernel (csrc/tvl1_ablate.cu) at the shapes its tool gives
@@ -797,13 +1050,17 @@ def kernels_ablate():
         plain_ms = time_cuda(
             lambda: tvl1_ablate_plain(ro, state, m, h, w, **flags), 2)
         bound, bound_by = chunk_bound_ms(n, h, w, 1, n * m)
+        launched, memops = enqueued_launches(
+            lambda: tvl1_ablate_chunks(ro, state, m, h, w, **flags))
         case = {
             "kernel": "tvl1_ablate_chunks", "variant": name,
             "shape": [n, h, w], "m": m, "max_abs_du": diff, "tolerance": tol,
             "relative_to": scale, "errs_max_rel": err_rel,
             "errs_tolerance": 1e-3, "errs": ke.flatten().tolist(),
             "state_moved": max_abs_diff(ks, state),
-            "device_launches": launches_per_call(m) + 1,
+            # tallied by the library, beside what the wrapper says it enqueues
+            "device_launches": launched, "device_memops": memops,
+            "tile_launches_enqueued": launches_per_call(m),
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by,
         }
@@ -1085,13 +1342,23 @@ def phase_solve():
 def phase_levels(pairs):
     """Where a main-path solve spends its time: the 32-image solve of the
     job's groups (2 strips x 16 pairs), each level's kernel call timed with
-    CUDA events, beside its bound and the floor of the launch-per-iteration
-    design (60 B per pixel and iteration over the memory rate)."""
+    CUDA events, beside its bound, the steps it took inside its one launch,
+    how full the grid was over them, the iterations it computed (chunks run
+    past an exit and replays included) against the iterations counted, and
+    the time the device-memory traffic of the tiled design itself would take
+    at the memory rate; then, from a profiler trace of the whole solve, the
+    kernels the card ran and its busy share."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops._build import enqueued
     from optflow_tpu_torch.ops.tvl1 import solve_pyramid
-    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
+    from optflow_tpu_torch.ops.tvl1_cuda import (
+        level_max_steps,
+        level_tiles,
+        level_window_px,
+        tvl1_level_solve,
+    )
 
     dev = torch.device("cuda")
     i0 = torch.from_numpy(np.stack([p[0] for p in pairs] * 2)).to(dev)
@@ -1102,10 +1369,14 @@ def phase_levels(pairs):
     def timed(a, b, u1, u2, p, u3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        before = enqueued()
         start.record()
         r1, r2, iters = tvl1_level_solve(a, b, u1, u2, p)
         end.record()
-        records.append((tuple(a.shape), start, end, iters))
+        put = [x - y for x, y in zip(enqueued(), before)]
+        records.append((tuple(a.shape), start, end, iters,
+                        tvl1_level_solve.last_work,
+                        tvl1_level_solve.last_steps, put))
         return r1, r2, u3, iters
 
     solve_pyramid(i0, i1, params, None, timed)  # warm-up
@@ -1117,28 +1388,78 @@ def phase_levels(pairs):
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     levels = []
-    for (n, h, w), start, end, iters in records:
+    for (n, h, w), start, end, iters, work, steps, put in records:
         total_iters = int(iters.sum())
         bound, bound_by = level_bound_ms(n, h, w, params.warps, total_iters)
+        computed, runs = (int(x) for x in work.sum(dim=1))
+        steps, grid, *live = steps.tolist()
+        tiles = level_tiles(h, w)
+        # a step of `x` images is ceil(x * tiles / grid) rounds of the grid
+        items = [x * tiles for x in live if x]
+        slots = sum(-(-i // grid) * grid for i in items)
+        # What the design moves through device memory for these counts: a
+        # chunk that ran loaded 9 planes of every tile's window and stored
+        # 6 planes of the image; a sweep's warp reads u1, u2, i0 and
+        # gathers from i1 and its gradient (counted once) and writes 3
+        # planes; state set-up, gradient and output move 60 B a pixel once.
+        traffic = (36 * tiles * level_window_px(h) * runs + 24 * h * w * runs
+                   + n * h * w * (36 * params.warps + 60))
         levels.append({
             "shape": [n, h, w], "kernel_ms": start.elapsed_time(end),
+            # kernels and memsets the level's call put on the card, tallied
+            # by the library
+            "device_launches": put[0], "device_memops": put[1],
             "iters_sum": total_iters, "iters_max": int(iters.max()),
-            "iteration_launches": params.warps * params.iterations,
+            "iters_computed_sum": computed,
+            "computed_per_counted": computed / max(total_iters, 1),
+            # the steps the level's sweeps took inside its launch, each
+            # ended by two grid-wide barriers, against the most the
+            # schedule allows; the share of the blocks' turns in those steps
+            # that had an (image, tile) item: the others waited at the
+            # barrier, inside the kernel
+            "grid_steps": steps, "grid_blocks": grid,
+            "grid_steps_at_most":
+            level_max_steps(params.warps, params.iterations),
+            "items_per_step": sum(items) / max(steps, 1),
+            "grid_fill": sum(items) / max(slots, 1),
+            "chunks_that_ran_max": int(work[1].max()),
             "bound_ms": bound, "bound_by": bound_by,
-            "design_floor_ms":
-            total_iters * h * w * 60 / PEAK_BYTES_PER_S * 1e3,
+            "design_traffic_ms": traffic / PEAK_BYTES_PER_S * 1e3,
         })
-    busy_ms, profiler_note = device_busy_ms(
-        lambda: solve_pyramid(i0, i1, params, None, timed))
+    trace = trace_device(lambda: solve_pyramid(i0, i1, params, None, timed))
+    busy_ms = trace["busy_ms"]
     records.clear()
+    level_launches = sum(c for name, c in trace["kernels"].items()
+                         if "level_kernel" in name)
+    weighted = sum(l["grid_fill"] * l["kernel_ms"] for l in levels)
     emit({"phase": "levels", "shape": list(i0.shape), "solve_ms": total_ms,
           "enqueue_ms": enqueue_ms, "device_busy_ms": busy_ms,
           "device_busy_share":
           None if busy_ms is None else busy_ms / total_ms,
-          "profiler": profiler_note,
+          # the busy share counts a block that waits at a grid barrier
+          # inside the level kernel as busy: it says the card is never
+          # without a kernel, not that its multiprocessors have work
+          "profiler": trace["note"],
+          # what the levels' calls put on the card, tallied by the library
+          "device_launches": sum(l["device_launches"] for l in levels),
+          "device_memops": sum(l["device_memops"] for l in levels),
+          # counted in the trace, where the profiler can trace this card
+          # (else 0): the level kernel's launches, every kernel of the solve
+          # (the pyramid's PyTorch operations included), and the memsets
+          # and copies
+          "level_kernel_launches_traced": level_launches,
+          "device_kernels_traced": sum(trace["kernels"].values()),
+          "device_memops_traced": trace["memops"],
+          "grid_fill_weighted_by_kernel_ms":
+          weighted / sum(l["kernel_ms"] for l in levels),
           "kernel_ms_sum": sum(l["kernel_ms"] for l in levels),
           "bound_ms_sum": sum(l["bound_ms"] for l in levels),
-          "design_floor_ms_sum": sum(l["design_floor_ms"] for l in levels),
+          "design_traffic_ms_sum":
+          sum(l["design_traffic_ms"] for l in levels),
+          "iters_sum": sum(l["iters_sum"] for l in levels),
+          "iters_computed_sum":
+          sum(l["iters_computed_sum"] for l in levels),
+          "grid_steps_sum": sum(l["grid_steps"] for l in levels),
           "levels": levels})
 
 
@@ -1287,6 +1608,23 @@ def phase_job(results, tmp):
         fail(f"mean match error {err} > 1.0 full-res px")
     results.setdefault("launches", {})["tvl1_level_solve"] = launches
     results["sections"] = sections
+
+    # The same job once more. The frames above took seconds of host work to
+    # make, with the card idle; this run starts on a card that has just
+    # worked, as every group after the first of a long job does.
+    job = build_job(names, n_pairs, os.path.join(tmp, "job2.journal"), "job")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = run_job_batched(job, sink=MockRenderSink(), loader=loader,
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    emit({"phase": "job", "run": "second", "pairs": stats["pairs"],
+          "wall_s": wall, "mp_pairs_per_s": stats["pairs"] * mp_per_pair / wall,
+          "timing": stats["timing"]})
+    if stats["batched"] != n_pairs:
+        fail(f"second run of the job: {stats}")
 
 
 def write_pngs(sections, folder, decoder):
@@ -1543,18 +1881,50 @@ def phase_level_api(results):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = read_launch_counts()
+    # the chunk kernel's launches for one pair, tallied by its library
+    chunk_enqueued, _ = enqueued_launches(
+        lambda: tvl1_flow(i0, i1, params, level_solver=solver))
+    # the path is bound by the host (the warp of every sweep is some hundred
+    # small PyTorch operations): two more runs show its spread
+    more_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tvl1_flow(i0, i1, params, level_solver=solver)
+        torch.cuda.synchronize()
+        more_ms.append((time.perf_counter() - t0) * 1e3)
+    # what the card ran for one pair, where the profiler can trace it (else
+    # None and 0): the chunk kernel's launches and time, and everything
+    # else (the plain PyTorch pyramid, gradient and warp of every sweep)
+    trace = trace_device(
+        lambda: tvl1_flow(i0, i1, params, level_solver=solver))
+    chunk_launches = sum(c for name, c in trace["kernels"].items()
+                         if "chunk_" in name)
     epe = float(torch.hypot(flow[..., 0] - DX, flow[..., 1] - DY).mean())
     emit({"phase": "level_api", "shape": [SECTION_H, SECTION_W],
           "solver": solver.__name__, "epe_px": epe, "gate_px": 0.5,
-          "solve_ms": ms, "enqueue_ms": enqueue_ms, "launches": counts})
+          "solve_ms": ms, "enqueue_ms": enqueue_ms,
+          "solve_ms_two_more_runs": more_ms,
+          "device_busy_ms": trace["busy_ms"], "profiler": trace["note"],
+          "chunk_kernel_launches": chunk_enqueued,
+          "chunk_kernel_launches_traced": chunk_launches,
+          "device_kernels_traced": sum(trace["kernels"].values()),
+          "device_memops_traced": trace["memops"],
+          "wrapper_launches": counts["tvl1_chunk_sweep"],
+          "wrapper_launches_expected": params.nscales * params.warps,
+          "launches": counts})
     if tuple(flow.shape) != (SECTION_H, SECTION_W, 2) or not bool(
             torch.isfinite(flow).all()):
         fail("level_api flow: wrong shape or not finite")
-    if counts["tvl1_chunk"] < 1:
-        fail("tvl1_flow(level_solver=...) did not launch the chunk kernel")
+    # one call into the chunk kernel's library per level and sweep
+    if counts["tvl1_chunk_sweep"] != params.nscales * params.warps:
+        fail(f"tvl1_flow(level_solver=...) launched the chunk kernel's sweep "
+             f"{counts['tvl1_chunk_sweep']} times, expected one per level and "
+             f"sweep: {params.nscales * params.warps}")
     if not epe <= 0.5:
         fail(f"level_api: mean EPE {epe} > 0.5 px")
-    results.setdefault("launches", {})["tvl1_chunk"] = counts["tvl1_chunk"]
+    # the chunk kernel's launches on this path, through either wrapper
+    results.setdefault("launches", {})["tvl1_chunk"] = (
+        counts["tvl1_chunk"] + counts["tvl1_chunk_sweep"])
 
 
 # --------------------------------------------------------------------------
@@ -1950,8 +2320,11 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches.get(name, 0),
             "shape": case["shape"],
-            **{k: case[k] for k in ("warps", "iterations", "k", "m", "mode",
-                                    "variant") if k in case},
+            **{k: case[k] for k in (
+                "entry", "warps", "iterations", "k", "m", "mode", "variant",
+                "replaced_kernel_ms", "device_launches", "device_memops",
+                "replaced_kernel_device_launches", "grid_steps",
+                "grid_blocks", "single_chunk") if k in case},
             "max_abs_err": case["max_abs_du"], "tolerance": case["tolerance"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],

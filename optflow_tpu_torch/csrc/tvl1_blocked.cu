@@ -234,8 +234,8 @@ int tvl1_blocked_level_solve(const float* i0, const float* i1,
   dim3 ogrid((unsigned)((hw + 255) / 256), n);
   init_state_kernel<<<ogrid, 256, 0, stream>>>(u1_in, u2_in, state, hw);
   CHECK_LAUNCH();
-  CHECK_CALL(cudaMemsetAsync(cur, 0, 2 * (size_t)n * sizeof(int), stream));
-  CHECK_CALL(cudaMemsetAsync(iters, 0, (size_t)n * sizeof(int), stream));
+  CHECK_MEMOP(cudaMemsetAsync(cur, 0, 2 * (size_t)n * sizeof(int), stream));
+  CHECK_MEMOP(cudaMemsetAsync(iters, 0, (size_t)n * sizeof(int), stream));
 
   dim3 pblock(32, 8);
   dim3 pgrid((w + 31) / 32, (h + 7) / 8, n);

@@ -30,13 +30,27 @@
 // state is copied, its errors are 0): the caller stops an image's later
 // chunks that way without reading anything back.
 //
+// tvl1_chunk_sweep runs a whole sweep in one call: the TPU package's level
+// solve loops over its chunk kernel inside one compiled program; a loop in
+// Python over tvl1_chunk costs the host one wrapper call, two allocations
+// and two small PyTorch operations per chunk (1,900 a 512 x 1024 pair, all of
+// its 210 ms). The sweep entry enqueues the ceil(iterations / 8) tile launches
+// from the C function, and each launch decides per image on the card whether
+// it runs, from the tile sums the launch before it left: every block of an
+// image adds that row itself, in the same order, so all decide alike. State
+// and errors ping-pong between two buffers so that the last launch leaves
+// the result in the output; a stopped image is copied through (48 B a pixel
+// and launch: a per-image current-buffer table as in the blocked kernel
+// would save that, and is not taken here).
+//
 // What bounds it: in tile mode a launch reads 9 and writes 6 floats per
 // pixel of device memory for m iterations of 63 float operations each, and
 // the iterations themselves run from shared memory (about 29 four-byte
 // accesses per pixel and iteration, on 1.9 times the pixels), so at m = 8 the
 // shared-memory traffic, not device memory, is the limit. In one-block mode
 // a level is a few thousand pixels: latency of the two block-wide barriers
-// per iteration.
+// per iteration. A sweep of a single image is bound by its launches: 38 of
+// them, most of which find the image stopped and copy it.
 
 #include "tvl1_common.cuh"
 
@@ -64,14 +78,20 @@ __device__ void pass_through(const float* __restrict__ src,
   }
 }
 
-// Tile mode. grid = (tiles, n); errs is (n, tiles).
+// Tile mode. grid = (tiles, n); errs is (n, tiles). An image runs unless its
+// `active` entry is 0 or, where `prev_errs` (the errors the chunk before
+// returned) is given and thresh >= 0, the sum of its row of them is
+// <= thresh: every block of the image adds the row itself, all in the same
+// order, so all decide alike and nothing is read back by the host.
 __global__ void __launch_bounds__(TILE_THREADS)
     chunk_tiles_kernel(const float* __restrict__ ro,
                        const float* __restrict__ state,
                        float* __restrict__ out, float* __restrict__ errs,
-                       const int* __restrict__ active, int* __restrict__ iters,
-                       int h, int w, int tiles_x, int m, float l_t,
-                       float theta, float taut) {
+                       const int* __restrict__ active,
+                       const float* __restrict__ prev_errs,
+                       int* __restrict__ iters, int h, int w, int tiles_x,
+                       int m, float l_t, float theta, float taut,
+                       float thresh) {
   extern __shared__ float smem[];
   const int n = blockIdx.y;
   const int tile = blockIdx.x;
@@ -83,7 +103,16 @@ __global__ void __launch_bounds__(TILE_THREADS)
   float* dst = out + (size_t)n * 6 * hw;
   float* err_cell = errs + (size_t)n * gridDim.x + tile;
 
-  if (active != nullptr && active[n] == 0) {
+  bool run = active == nullptr || active[n] != 0;
+  if (run && prev_errs != nullptr && thresh >= 0.0f) {
+    const float* row = prev_errs + (size_t)n * gridDim.x;
+    float part = 0.0f;
+    for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
+      part += row[i];
+    run = block_sum(part) > thresh;
+  }
+  if (!run) {
+    // a stopped image returns errors of 0, so the stop is sticky
     pass_through(st, dst, h, w, iy0, iy1, ix0, ix1);
     if (threadIdx.x == 0) *err_cell = 0.0f;
     return;
@@ -184,9 +213,66 @@ int tvl1_chunk(const float* ro, const float* state, float* out, float* errs,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bytes));
   chunk_tiles_kernel<<<dim3(tiles_x * tiles_y, n), TILE_THREADS, bytes,
-                       stream>>>(ro, state, out, errs, active, iters, h, w,
-                                 tiles_x, m, l_t, theta, taut);
+                       stream>>>(ro, state, out, errs, active, nullptr, iters,
+                                 h, w, tiles_x, m, l_t, theta, taut, thresh);
   CHECK_LAUNCH();
+  return 0;
+}
+
+// Enqueue one whole sweep on `stream`: up to `iterations` iterations on the
+// fixed warped arrays `ro`, with the level solve's exit rule. One-block mode:
+// one launch, the exit inside the kernel, per iteration. Tile mode:
+// ceil(iterations / 8) launches of the tile kernel, each deciding per image
+// from the errors of the launch before it whether it runs (the first always
+// does); a stopped image is copied through the launches that are left, so the
+// last launch leaves every image's final state in `out`.
+//   ro      : (n, 3, h, w) float32, read only
+//   state   : (n, 6, h, w) float32, read only
+//   out     : (n, 6, h, w) float32, the result
+//   scratch : (n, 6, h, w) float32, the other ping-pong buffer (may be null
+//             in one-block mode and when iterations <= 8)
+//   errs    : (2, n, blocks) float32; on return slot (launches - 1) & 1 holds
+//             the errors of the last launch, 0 for an image that had stopped
+//             before it
+//   iters   : (n) int32 or null: the iterations each image ran are added
+// No two of state, out and scratch may overlap. iterations >= 1.
+// Does not synchronise. Returns 0 or the first CUDA error code.
+int tvl1_chunk_sweep(const float* ro, const float* state, float* out,
+                     float* scratch, float* errs, int* iters, int n, int h,
+                     int w, int iterations, int one_block, float l_t,
+                     float theta, float taut, float thresh,
+                     void* stream_ptr) {
+  if (iterations < 1) return (int)cudaErrorInvalidValue;
+  if (one_block)
+    return tvl1_chunk(ro, state, out, errs, nullptr, iters, n, h, w,
+                      iterations, 1, l_t, theta, taut, thresh, stream_ptr);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (n <= 0 || n > 65535 || h < 2 || w < 2)
+    return (int)cudaErrorInvalidValue;
+  const int launches = (iterations + CHUNK_K - 1) / CHUNK_K;
+  if (launches > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int tiles_x = (w + TILE_W - 1) / TILE_W;
+  const int tiles_y = (h + TILE_H - 1) / TILE_H;
+  const int tiles = tiles_x * tiles_y;
+  const size_t bytes =
+      (size_t)WINDOW_PLANES * CHUNK_WIN_H * CHUNK_WIN_W * sizeof(float);
+  CHECK_CALL(cudaFuncSetAttribute(chunk_tiles_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bytes));
+  const float* src = state;
+  const float* prev = nullptr;
+  for (int i = 0; i < launches; ++i) {
+    // the last launch writes `out`; the ones before it alternate
+    float* dst = ((launches - 1 - i) % 2 == 0) ? out : scratch;
+    float* cur = errs + (size_t)(i & 1) * n * tiles;
+    const int m = min(CHUNK_K, iterations - i * CHUNK_K);
+    chunk_tiles_kernel<<<dim3(tiles, n), TILE_THREADS, bytes, stream>>>(
+        ro, src, dst, cur, nullptr, prev, iters, h, w, tiles_x, m, l_t, theta,
+        taut, thresh);
+    CHECK_LAUNCH();
+    src = dst;
+    prev = cur;
+  }
   return 0;
 }
 

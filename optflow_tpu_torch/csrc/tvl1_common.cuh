@@ -1,7 +1,8 @@
 // Shared device code of the TV-L1 kernels (sm_90a): the centered gradient,
 // the exact-gather warp of one pixel, and the primal-dual iteration on a
 // window of a level held in shared memory. Included by tvl1_level.cu,
-// tvl1_blocked.cu and tvl1_chunk.cu; each of those is its own library.
+// tvl1_blocked.cu, tvl1_chunk.cu and tvl1_ablate.cu; each of those is its own
+// library.
 //
 // Arithmetic is the plain solver's (ops/tvl1.py `_iteration`,
 // ops/warp.py `warp_backward`) in the same order everywhere: exact
@@ -27,10 +28,34 @@ namespace {
 
 constexpr float GRAD_EPS = 1.192092896e-07f;
 
+// What the library's host functions have put on a stream since it was
+// loaded: [0] kernel launches, [1] memsets and copies. Each is counted where
+// it is enqueued, so a caller reads the launches of one call as a difference
+// (`tvl1_enqueued`, below) without tracing the card.
+long long g_enqueued[2] = {0, 0};
+
+// After a `<<<...>>>` launch.
 #define CHECK_LAUNCH()                     \
   do {                                     \
     cudaError_t e_ = cudaGetLastError();   \
     if (e_ != cudaSuccess) return (int)e_; \
+    ++g_enqueued[0];                       \
+  } while (0)
+
+// Around a launch made through the runtime's API (a cooperative launch).
+#define CHECK_LAUNCH_CALL(expr)            \
+  do {                                     \
+    cudaError_t e_ = (expr);               \
+    if (e_ != cudaSuccess) return (int)e_; \
+    ++g_enqueued[0];                       \
+  } while (0)
+
+// Around a cudaMemsetAsync or cudaMemcpyAsync.
+#define CHECK_MEMOP(expr)                  \
+  do {                                     \
+    cudaError_t e_ = (expr);               \
+    if (e_ != cudaSuccess) return (int)e_; \
+    ++g_enqueued[1];                       \
   } while (0)
 
 #define CHECK_CALL(expr)                   \
@@ -161,8 +186,10 @@ __device__ __forceinline__ int window_width(const Window& t) {
 }
 
 // Fill the window from the image's planes in device memory: `state` is the
-// image's 6 planes, `ro` its 3, each h*w floats apart.
-template <int WIN_W>
+// image's 6 planes, `ro` its 3, each h*w floats apart. L2_ONLY loads past the
+// first-level cache, which is not coherent across multiprocessors: for a
+// kernel in which other blocks rewrite the planes between two of its reads.
+template <int WIN_W, bool L2_ONLY = false>
 __device__ __forceinline__ void window_load(const Window& t,
                                             const float* __restrict__ state,
                                             const float* __restrict__ ro) {
@@ -174,12 +201,16 @@ __device__ __forceinline__ void window_load(const Window& t,
     int y = t.y0 + ly, x = t.x0 + lx;
     bool in = (x >= 0 && x < t.w && y >= 0 && y < t.h);
     size_t o = (size_t)y * t.w + x;
+    // every load starts before the first store: the loads of a pixel are in
+    // flight together, not one after the other behind a store each
+    float v[WINDOW_PLANES];
 #pragma unroll
-    for (int c = 0; c < 6; ++c)
-      t.s[c * wpx + idx] = in ? state[c * hw + o] : 0.0f;
+    for (int c = 0; c < WINDOW_PLANES; ++c) {
+      const float* p = c < 6 ? state + c * hw + o : ro + (c - 6) * hw + o;
+      v[c] = !in ? 0.0f : L2_ONLY ? __ldcg(p) : *p;
+    }
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      t.s[(6 + c) * wpx + idx] = in ? ro[c * hw + o] : 0.0f;
+    for (int c = 0; c < WINDOW_PLANES; ++c) t.s[c * wpx + idx] = v[c];
   }
 }
 
@@ -338,4 +369,48 @@ __device__ __forceinline__ float window_iterate(const Window& t, int m,
   return ERR ? block_sum(local) : 1.0f;
 }
 
+// Most iterations window_iterate_sums records in one call.
+constexpr int MAX_SUMS = 16;
+
+// `m` <= MAX_SUMS iterations on the window that keep EVERY iteration's sum
+// of |u_new - u|^2 over the image rectangle: on return sums[j], j < m, holds
+// iteration j's, visible to all threads. The arithmetic on the window is
+// window_iterate's. A block-wide reduction per iteration would add three
+// barriers to each of them; instead each warp leaves its partial of iteration
+// j in warp_part[j][warp] (no barrier beyond the iteration's own two), and
+// after the loop thread j adds the warps' partials in warp order, so the sums
+// depend on nothing but the block's size. `warp_part` is MAX_SUMS x 32 floats
+// and `sums` MAX_SUMS floats of shared memory.
+template <int WIN_W>
+__device__ __forceinline__ void window_iterate_sums(
+    const Window& t, int m, float l_t, float theta, float taut, int iy0,
+    int iy1, int ix0, int ix1, float* warp_part, float* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int it = 0; it < m; ++it) {
+    float local = window_primal<WIN_W>(t, l_t, theta, iy0, iy1, ix0, ix1);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      local += __shfl_down_sync(0xffffffffu, local, s);
+    if (lane == 0) warp_part[it * 32 + warp] = local;
+    __syncthreads();
+    window_dual<WIN_W>(t, taut);
+    __syncthreads();
+  }
+  if ((int)threadIdx.x < m) {
+    const int warps = blockDim.x >> 5;
+    float s = 0.0f;
+    for (int k = 0; k < warps; ++k) s += warp_part[threadIdx.x * 32 + k];
+    sums[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
 }  // namespace
+
+// out[0] = kernel launches, out[1] = memsets and copies that this library has
+// enqueued since it was loaded. Every library that includes this header
+// exports it under the same name.
+extern "C" void tvl1_enqueued(long long* out) {
+  out[0] = g_enqueued[0];
+  out[1] = g_enqueued[1];
+}

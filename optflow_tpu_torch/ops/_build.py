@@ -6,7 +6,8 @@ built at first use, never at import, into ``build/`` beside the package and
 is named after a hash of the source, the headers beside it and the flags, so
 an edit rebuilds and an unchanged source is reused. A failed build raises
 with the compiler's output. :func:`build_libraries` compiles several sources
-at once, one ``nvcc`` process each.
+at once, one ``nvcc`` process each. :func:`enqueued` reads what the loaded
+libraries have put on the card's streams.
 """
 
 from __future__ import annotations
@@ -100,3 +101,21 @@ def load_library(stem: str) -> ctypes.CDLL:
         build_libraries([stem])
         lib = _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
     return lib
+
+
+def enqueued() -> Tuple[int, int]:
+    """(kernel launches, memsets and copies) that the TV-L1 libraries loaded
+    so far have enqueued since they were loaded, as each tallies them on the
+    host where it enqueues them (``tvl1_enqueued`` of ``csrc/tvl1_common.cuh``).
+    The difference across a call is what that call put on the card; PyTorch's
+    own operations are not in it."""
+    kernels = memops = 0
+    for lib in _loaded.values():
+        fn = getattr(lib, "tvl1_enqueued", None)
+        if fn is None:  # a library without the shared header
+            continue
+        out = (ctypes.c_longlong * 2)()
+        fn(ctypes.c_void_p(ctypes.addressof(out)))
+        kernels += out[0]
+        memops += out[1]
+    return kernels, memops

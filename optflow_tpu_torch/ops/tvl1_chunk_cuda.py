@@ -12,11 +12,13 @@ level runs in 32 x 64 tiles, at most :data:`CHUNK_K` iterations per launch.
 On a CUDA tensor the wrapper launches the kernel or raises; a CPU tensor
 takes :func:`tvl1_chunk_plain`.
 
-:func:`tvl1_flow_level_cuda_batched` solves one pyramid level with it: the
-gradient and the exact gather warp once per sweep by ``ops/warp.py`` (they
-are no part of the kernel this replaces either), the chunk kernel for the
-iterations. In tile mode the level solve stops an image's later chunks on the
-device, from the errors the last chunk returned; nothing is read back.
+:func:`tvl1_chunk_sweep` runs a whole sweep, up to ``iterations`` iterations
+with the level solve's exit rule: on the card one call into the library
+enqueues every chunk, and each launch decides on the device which images it
+still runs. :func:`tvl1_flow_level_cuda_batched` solves one pyramid level
+with it: the gradient and the exact gather warp once per sweep by
+``ops/warp.py`` (they are no part of the kernel this replaces either), one
+``tvl1_chunk_sweep`` call for the sweep's iterations; nothing is read back.
 
 The library is compiled at the first CUDA call (``ops/_build.py``).
 """
@@ -69,6 +71,10 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tvl1_chunk.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 4 + [ptr]
         lib.tvl1_chunk.restype = i32
+        lib.tvl1_chunk_sweep.argtypes = (
+            [ptr] * 6 + [i32] * 5 + [f32] * 4 + [ptr]
+        )
+        lib.tvl1_chunk_sweep.restype = i32
         lib.tvl1_chunk_error_string.argtypes = [i32]
         lib.tvl1_chunk_error_string.restype = ctypes.c_char_p
         built = (lib.tvl1_chunk_k(), lib.tvl1_chunk_tile_h(),
@@ -232,6 +238,100 @@ def tvl1_chunk(
 tvl1_chunk.launches = 0
 
 
+def _check_sweep(iterations: int) -> None:
+    if iterations < 1:
+        raise ValueError(f"iterations must be >= 1, got {iterations}")
+
+
+def tvl1_chunk_sweep_plain(
+    ro: torch.Tensor,  # (N, 3, H, W) float32: i1wx, i1wy, rho_c
+    state: torch.Tensor,  # (N, 6, H, W) float32
+    iterations: int,
+    thresh: float,
+    params: TVL1Params,
+    iters: Optional[torch.Tensor] = None,  # (N,) int32, added to in place
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`tvl1_chunk_sweep`: the loop over
+    :func:`tvl1_chunk_plain`, one call per chunk of ``CHUNK_K`` iterations,
+    an image's later chunks stopped from the errors the last one returned."""
+    _check_sweep(iterations)
+    _check_inputs(ro, state, 1, None, iters)
+    if chunk_geometry(*state.shape[-2:]).one_block:
+        return tvl1_chunk_plain(ro, state, iterations, thresh, params,
+                                iters=iters)
+    active = None
+    errs = None
+    for done in range(0, iterations, CHUNK_K):
+        m = min(CHUNK_K, iterations - done)
+        state, errs = tvl1_chunk_plain(
+            ro, state, m, thresh, params, active=active, iters=iters
+        )
+        if thresh >= 0:
+            # a stopped image returns 0, so the stop is sticky
+            active = (errs.sum(dim=1) > thresh).to(torch.int32)
+    return state, errs
+
+
+def tvl1_chunk_sweep(
+    ro: torch.Tensor,  # (N, 3, H, W) float32: i1wx, i1wy, rho_c
+    state: torch.Tensor,  # (N, 6, H, W) float32
+    iterations: int,
+    thresh: float,
+    params: TVL1Params,
+    iters: Optional[torch.Tensor] = None,  # (N,) int32, added to in place
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One whole sweep of a level on fixed warped arrays: up to
+    ``iterations >= 1`` primal-dual iterations of every image with the level
+    solve's exit rule. A one-block level stops each image inside the kernel,
+    per iteration; a tile-mode level runs chunks of ``CHUNK_K`` and stops an
+    image after the first chunk whose last error is ``<= thresh``
+    (``thresh < 0``: never). Returns ``(new_state, errs)``; ``errs`` is
+    ``(N, blocks)``, the errors of the last chunk, 0 for an image that had
+    stopped before it.
+
+    On CUDA tensors all the chunks are enqueued by one call into the
+    library, each launch deciding on the device, from the tile sums of the
+    launch before it, which images it runs: no PyTorch operation and nothing
+    read back inside the sweep (``tvl1_chunk_sweep.launches`` counts these
+    calls). The sums are added on the device in another order than the plain
+    version's ``errs.sum(dim=1)``, so an image within rounding of its
+    threshold may stop one chunk apart. A failure raises; CPU tensors take
+    the plain version."""
+    if not state.is_cuda:
+        return tvl1_chunk_sweep_plain(ro, state, iterations, thresh, params,
+                                      iters)
+    _check_sweep(iterations)
+    _check_inputs(ro, state, 1, None, iters)
+    lib = _library()
+    n, _, h, w = state.shape
+    geo = chunk_geometry(h, w)
+    dev = state.device
+    launches = 1 if geo.one_block else -(-int(iterations) // CHUNK_K)
+    with torch.cuda.device(dev):
+        out = torch.empty_like(state)
+        scratch = torch.empty_like(state) if launches > 1 else None
+        errs = torch.empty((2, n, geo.blocks), dtype=torch.float32, device=dev)
+        code = lib.tvl1_chunk_sweep(
+            ro.data_ptr(), state.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), errs.data_ptr(),
+            None if iters is None else iters.data_ptr(),
+            n, h, w, int(iterations), int(geo.one_block),
+            float(params.lambda_ * params.theta), float(params.theta),
+            float(params.tau / params.theta), float(thresh),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if code != 0:
+        raise RuntimeError(
+            f"tvl1_chunk_sweep: CUDA error {code}: "
+            f"{lib.tvl1_chunk_error_string(code).decode()}"
+        )
+    tvl1_chunk_sweep.launches += 1
+    return out, errs[(launches - 1) & 1]
+
+
+tvl1_chunk_sweep.launches = 0
+
+
 def tvl1_flow_level_cuda_batched(
     i0: torch.Tensor,  # (N, H, W) float32
     i1: torch.Tensor,
@@ -255,7 +355,6 @@ def tvl1_flow_level_cuda_batched(
         out = level_solve_plain(i0, i1, u1, u2, params, u3=u3)
         return out if return_iters else out[:3]
     n, h, w = i0.shape
-    geo = chunk_geometry(h, w)
     use_eps = params.epsilon > 0
     thresh = params.epsilon * params.epsilon * h * w if use_eps else -1.0
     with torch.no_grad():
@@ -265,25 +364,15 @@ def tvl1_flow_level_cuda_batched(
         zeros = torch.zeros_like(u1)
         state = torch.stack([u1, u2, zeros, zeros, zeros, zeros], dim=1)
         iters = torch.zeros(n, dtype=torch.int32, device=i0.device)
-        for _ in range(params.warps):
+        # without iterations a sweep leaves the state as it is
+        for _ in range(params.warps if params.iterations >= 1 else 0):
             _, i1wx, i1wy, _, rho_c = warp_backward(
                 i0, i1, i1x, i1y, state[:, 0], state[:, 1]
             )
             ro = torch.stack([i1wx, i1wy, rho_c], dim=1)
-            if geo.one_block:
-                state, _ = tvl1_chunk(
-                    ro, state, params.iterations, thresh, params, iters=iters
-                )
-                continue
-            active = None
-            for done in range(0, params.iterations, CHUNK_K):
-                m = min(CHUNK_K, params.iterations - done)
-                state, errs = tvl1_chunk(
-                    ro, state, m, thresh, params, active=active, iters=iters
-                )
-                if use_eps:
-                    # a stopped image returns 0, so the stop is sticky
-                    active = (errs.sum(dim=1) > thresh).to(torch.int32)
+            state, _ = tvl1_chunk_sweep(
+                ro, state, params.iterations, thresh, params, iters=iters
+            )
     if return_iters:
         return state[:, 0], state[:, 1], u3, iters
     return state[:, 0], state[:, 1], u3

@@ -11,6 +11,14 @@ plain solver's ``_iteration`` and ``warp_backward``. ``gamma != 0`` is not
 solved by the kernel (``ops.tvl1.tvl1_flow_batched`` routes it to the plain
 solver).
 
+The kernel runs a sweep's iterations in chunks on tiles held in shared
+memory (:data:`LEVEL_SCHEDULE` iterations per chunk) and keeps the exact
+per-iteration exit by running a chunk speculatively and, where an image's
+exit fell inside it, once more from the chunk's input up to the exit.
+:func:`tvl1_level_solve_schedule_plain` is that control flow on whole images
+in plain PyTorch: it must equal the plain version bit for bit, flow and
+counts.
+
 The library is compiled at the first CUDA call (``ops/_build.py``), so
 importing this module needs neither ``nvcc`` nor a GPU.
 """
@@ -18,13 +26,27 @@ importing this module needs neither ``nvcc`` nor a GPU.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from optflow_tpu_torch.core.config import TVL1Params
 from optflow_tpu_torch.ops import _build
-from optflow_tpu_torch.ops.tvl1 import level_solve_plain, solve_pyramid
+from optflow_tpu_torch.ops.tvl1 import (
+    _iteration,
+    _LevelState,
+    level_solve_plain,
+    solve_pyramid,
+)
+from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
+
+# Iterations per chunk, in order within a sweep; the last entry repeats. A
+# constant of the kernel (csrc/tvl1_level.cu), mirrored here for the plain
+# emulation; the wrapper checks it against the library.
+LEVEL_SCHEDULE = (2, 2, 4)
+# The kernel's tiles: at most 32 rows (a level is cut into rows of tiles of
+# equal height) by 64 columns, loaded with a halo of 4 pixels on every side.
+LEVEL_TILE_H, LEVEL_TILE_W, LEVEL_HALO = 32, 64, 4
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -37,13 +59,30 @@ def _library() -> ctypes.CDLL:
         # pointers and the stream are Python ints: without argtypes ctypes
         # would pass them as 32-bit ints and cut them
         lib.tvl1_level_solve.argtypes = (
-            [ptr] * 9 + [i32] * 5 + [f32] * 4 + [ptr]
+            [ptr] * 11 + [i32] * 5 + [f32] * 4 + [ptr]
         )
         lib.tvl1_level_solve.restype = i32
-        lib.tvl1_level_scratch_floats.argtypes = [i32, i32, i32]
-        lib.tvl1_level_scratch_floats.restype = ctypes.c_longlong
+        lib.tvl1_level_solve_per_iteration.argtypes = (
+            [ptr] * 9 + [i32] * 5 + [f32] * 4 + [ptr]
+        )
+        lib.tvl1_level_solve_per_iteration.restype = i32
+        for fn in (lib.tvl1_level_scratch_floats, lib.tvl1_level_err_floats,
+                   lib.tvl1_level_table_ints):
+            fn.argtypes = [i32, i32, i32]
+            fn.restype = ctypes.c_longlong
+        lib.tvl1_level_schedule.argtypes = [i32]
         lib.tvl1_error_string.argtypes = [i32]
         lib.tvl1_error_string.restype = ctypes.c_char_p
+        built = (tuple(lib.tvl1_level_schedule(c)
+                       for c in range(lib.tvl1_level_schedule_len())),
+                 lib.tvl1_level_tile_h(), lib.tvl1_level_tile_w(),
+                 lib.tvl1_level_halo())
+        expected = (LEVEL_SCHEDULE, LEVEL_TILE_H, LEVEL_TILE_W, LEVEL_HALO)
+        if built != expected:
+            raise RuntimeError(
+                f"csrc/tvl1_level.cu was built with (schedule, tile, halo) "
+                f"{built}, the wrapper expects {expected}"
+            )
         _lib = lib
     return _lib
 
@@ -87,6 +126,190 @@ def tvl1_level_solve_plain(
     return a, b, iters
 
 
+def level_chunk_schedule(iterations: int) -> List[int]:
+    """Iterations of each chunk of one sweep of ``iterations``: the entries
+    of :data:`LEVEL_SCHEDULE`, the last one repeated and the final chunk cut
+    so that they add up."""
+    chunks, left = [], int(iterations)
+    while left > 0:
+        planned = LEVEL_SCHEDULE[min(len(chunks), len(LEVEL_SCHEDULE) - 1)]
+        chunks.append(min(planned, left))
+        left -= chunks[-1]
+    return chunks
+
+
+def level_tiles(h: int, w: int) -> int:
+    """Tiles of one ``h x w`` image: the items one image adds to a step."""
+    return -(-h // LEVEL_TILE_H) * -(-w // LEVEL_TILE_W)
+
+
+def level_window_px(h: int) -> int:
+    """Pixels of the window one tile of an ``h``-row level loads for a chunk:
+    the tile (a level is cut into rows of tiles of equal height) and its
+    halo."""
+    tile_rows = -(-h // LEVEL_TILE_H)
+    tile_h = -(-h // tile_rows)
+    return (tile_h + 2 * LEVEL_HALO) * (LEVEL_TILE_W + 2 * LEVEL_HALO)
+
+
+def level_max_steps(warps: int, iterations: int) -> int:
+    """Grid-wide steps one :func:`tvl1_level_solve` call takes at most: per
+    sweep its chunks and one step that settles the last chunk's exit. The
+    kernel leaves a sweep as soon as no image has anything left to do; the
+    steps it did take are in ``tvl1_level_solve.last_steps[0]``."""
+    if iterations <= 0:
+        return 0
+    return int(warps) * (len(level_chunk_schedule(iterations)) + 1)
+
+
+def tvl1_level_solve_schedule_plain(
+    i0: torch.Tensor,  # (N, H, W) float32
+    i1: torch.Tensor,
+    u1: torch.Tensor,
+    u2: torch.Tensor,
+    params: TVL1Params,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's control flow on whole images, in plain PyTorch: chunks
+    of :func:`level_chunk_schedule` run speculatively with every iteration's
+    error kept; the step after a chunk finds each image's first iteration
+    whose error met the criterion and, where that was not the chunk's last,
+    runs the chunk again from its kept input up to it. Returns
+    ``(u1, u2, iters, computed)``: the first three equal
+    :func:`tvl1_level_solve_plain` bit for bit; ``computed`` is the
+    iterations run for each image, those past an exit and the replays
+    included."""
+    _check_inputs(i0, i1, u1, u2, params)
+    l_t = params.lambda_ * params.theta
+    taut = params.tau / params.theta
+    n, h, w = i0.shape
+    use_eps = params.epsilon > 0
+    thresh = params.epsilon * params.epsilon * h * w
+    dev = i0.device
+
+    def masked(mask, new, old):
+        keep = mask[:, None, None]
+        return _LevelState(*(torch.where(keep, a, b) for a, b in zip(new, old)))
+
+    with torch.no_grad():
+        i1x, i1y = centered_gradient(i1)
+        zeros = torch.zeros_like(i0)
+        state = _LevelState(u1, u2, zeros, *([zeros] * 6))
+        iters = torch.zeros(n, dtype=torch.int32, device=dev)
+        computed = torch.zeros_like(iters)
+        for _ in range(params.warps):
+            _, i1wx, i1wy, grad, rho_c = warp_backward(
+                i0, i1, i1x, i1y, state.u1, state.u2
+            )
+
+            def run(start, m, who):
+                """``m`` iterations from ``start`` for the images of ``who``:
+                (end state, errors (m, N))."""
+                st, errs = start, []
+                for _ in range(m):
+                    st, err = _iteration(
+                        st, i1wx, i1wy, grad, rho_c, l_t, params.theta, taut,
+                        0.0,
+                    )
+                    errs.append(err)
+                return masked(who, st, start), errs
+
+            running = torch.ones(n, dtype=torch.bool, device=dev)
+            kept, errs, m_prev = state, [], 0
+            # the schedule's chunks, then one step that only settles
+            for m in level_chunk_schedule(params.iterations) + [0]:
+                if m_prev and use_eps:
+                    met = torch.stack(errs) <= thresh  # (m_prev, N)
+                    met |= torch.stack(errs).isnan()
+                    first = torch.where(
+                        met.any(0), met.int().argmax(0), m_prev
+                    )  # m_prev: no exit in the chunk
+                    stops = running & (first < m_prev)
+                    replays = stops & (first < m_prev - 1)
+                    for j in sorted(set(first[replays].tolist())):
+                        who = replays & (first == j)
+                        again, _ = run(kept, j + 1, who)
+                        state = masked(who, again, state)
+                        iters += who.int() * (j + 1 - m_prev)
+                        computed += who.int() * (j + 1)
+                    running = running & ~stops
+                if m == 0 or not bool(running.any()):
+                    break
+                kept = state
+                state, errs = run(state, m, running)
+                iters += running.int() * m
+                computed += running.int() * m
+                m_prev = m
+    return state.u1, state.u2, iters, computed
+
+
+def _launch_level(i0, i1, u1, u2, params: TVL1Params, per_iteration: bool):
+    """Enqueue one level solve on CUDA tensors through the library's entry
+    point, or through the entry point of the replaced one-launch-per-
+    iteration kernel with ``per_iteration`` (only ``chip_smoke.py`` and a
+    test on the card ask for that one, to time and compare the two).
+    Returns ``(u1, u2, iters, work, steps)``, the last two None for the
+    replaced kernel; ``work`` is ``(2, N)`` int32: per image the iterations
+    computed (chunks run past an exit and replays included) and the chunks
+    that ran; ``steps`` is int32: the grid-wide steps the call took, the
+    blocks of its grid, and then for every step the images that ran in it (a
+    0 ends each sweep)."""
+    _check_inputs(i0, i1, u1, u2, params)
+    lib = _library()
+    n, h, w = i0.shape
+    dev = i0.device
+    use_eps = params.epsilon > 0
+    thresh = params.epsilon * params.epsilon * h * w if use_eps else -1.0
+    scalars = (
+        n, h, w, int(params.warps), int(params.iterations),
+        float(params.lambda_ * params.theta), float(params.theta),
+        float(params.tau / params.theta), float(thresh),
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        u1_out = torch.empty_like(u1)
+        u2_out = torch.empty_like(u2)
+        # iterations run; then what was computed for them: iterations,
+        # chunks
+        counts = torch.empty((3, n), dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            lib.tvl1_level_scratch_floats(n, h, w), dtype=torch.float32,
+            device=dev,
+        )
+        pointers = (i0.data_ptr(), i1.data_ptr(), u1.data_ptr(),
+                    u2.data_ptr(), u1_out.data_ptr(), u2_out.data_ptr())
+        if per_iteration:
+            err = torch.empty(
+                max(1, n * params.iterations), dtype=torch.float32, device=dev
+            )
+            code = lib.tvl1_level_solve_per_iteration(
+                *pointers, counts[0].data_ptr(), scratch.data_ptr(),
+                err.data_ptr(), *scalars, stream,
+            )
+        else:
+            err = torch.empty(
+                lib.tvl1_level_err_floats(n, h, w), dtype=torch.float32,
+                device=dev,
+            )
+            tables = torch.empty(
+                lib.tvl1_level_table_ints(n, scalars[3], scalars[4]),
+                dtype=torch.int32, device=dev,
+            )
+            code = lib.tvl1_level_solve(
+                *pointers, counts[0].data_ptr(), counts[1].data_ptr(),
+                scratch.data_ptr(), err.data_ptr(), tables.data_ptr(),
+                *scalars, stream,
+            )
+            steps = tables[4 * n:]
+    if code != 0:
+        raise RuntimeError(
+            f"tvl1_level_solve: CUDA error {code}: "
+            f"{lib.tvl1_error_string(code).decode()}"
+        )
+    if per_iteration:
+        return u1_out, u2_out, counts[0], None, None
+    return u1_out, u2_out, counts[0], counts[1:], steps
+
+
 def tvl1_level_solve(
     i0: torch.Tensor,  # (N, H, W) float32
     i1: torch.Tensor,
@@ -98,51 +321,31 @@ def tvl1_level_solve(
 
     ``params.warps`` sweeps, each a backward warp by the current flow and up
     to ``params.iterations`` primal-dual updates; with ``params.epsilon > 0``
-    each image stops once its own sum of squared updates is
-    ``<= epsilon^2 * H * W``. Returns ``(u1, u2, iters)``: the new flow and
+    each image stops at the first iteration whose own sum of squared updates
+    is ``<= epsilon^2 * H * W``. Returns ``(u1, u2, iters)``: the new flow and
     the iterations each image ran, ``(N,)`` int32, summed over the sweeps.
 
     CUDA tensors launch the kernel on the current stream without
-    synchronising (``tvl1_level_solve.launches`` counts these calls) or
-    raise; CPU tensors take the plain version."""
+    synchronising (``tvl1_level_solve.launches`` counts these calls;
+    ``tvl1_level_solve.last_work`` keeps, on the device, what the last call
+    computed per image, speculation and replays included: ``(2, N)`` int32 of
+    iterations and chunks; ``last_steps``, int32, the grid-wide steps it
+    took, the blocks of its grid, and per step the images that ran in it, a 0
+    ending each sweep) or raise; CPU tensors take the plain version."""
     if not i0.is_cuda:
         return tvl1_level_solve_plain(i0, i1, u1, u2, params)
-    _check_inputs(i0, i1, u1, u2, params)
-    lib = _library()
-    n, h, w = i0.shape
-    dev = i0.device
-    use_eps = params.epsilon > 0
-    thresh = params.epsilon * params.epsilon * h * w if use_eps else -1.0
-    with torch.cuda.device(dev):
-        u1_out = torch.empty_like(u1)
-        u2_out = torch.empty_like(u2)
-        iters = torch.empty(n, dtype=torch.int32, device=dev)
-        scratch = torch.empty(
-            lib.tvl1_level_scratch_floats(n, h, w), dtype=torch.float32,
-            device=dev,
-        )
-        err = torch.empty(
-            max(1, n * params.iterations), dtype=torch.float32, device=dev
-        )
-        code = lib.tvl1_level_solve(
-            i0.data_ptr(), i1.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-            u1_out.data_ptr(), u2_out.data_ptr(), iters.data_ptr(),
-            scratch.data_ptr(), err.data_ptr(),
-            n, h, w, int(params.warps), int(params.iterations),
-            float(params.lambda_ * params.theta), float(params.theta),
-            float(params.tau / params.theta), float(thresh),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if code != 0:
-        raise RuntimeError(
-            f"tvl1_level_solve: CUDA error {code}: "
-            f"{lib.tvl1_error_string(code).decode()}"
-        )
+    u1_out, u2_out, iters, work, steps = _launch_level(
+        i0, i1, u1, u2, params, per_iteration=False
+    )
     tvl1_level_solve.launches += 1
+    tvl1_level_solve.last_work = work
+    tvl1_level_solve.last_steps = steps
     return u1_out, u2_out, iters
 
 
 tvl1_level_solve.launches = 0
+tvl1_level_solve.last_work = None
+tvl1_level_solve.last_steps = None
 
 
 # Padded pixels above which a level goes to the blocked kernel: the JAX
