@@ -12,7 +12,7 @@ PyTorch version on the card:
   (1024x2048 sections at scale 0.5): the blocked level kernel at the levels
   above the fused budget;
 - the per-level API, ``tvl1_flow(level_solver=default_level_solver(...))``:
-  the chunk kernel;
+  the chunk kernel's level entry;
 - the two measurement tools, ``tools.kernel_ablate`` and ``tools.smem_cap``:
   the ablation kernel and the shared-memory capacity probe;
 - style-1 jobs with feature pre-alignment (plain PyTorch on the card; the
@@ -30,10 +30,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
   build    compile (one nvcc per source, together) and load the five
            kernel libraries from optflow_tpu_torch/csrc
   kernels  each kernel against its plain version on the card, with
-           tolerances; the level kernel also against the blocked kernel and
-           against the per-iteration kernel it replaced (the library's
-           second entry point: bit for bit, and timed in turns old, new, new,
-           old); the chunk kernel's single chunk and its sweep entry; the
+           tolerances; the level kernel also against the blocked kernel (bit
+           for bit); the blocked kernel also against the per-chunk kernel it
+           replaced (the library's second entry point: bit for bit, and
+           timed in turns old, new, new, old); the chunk kernel's level
+           entry, also against the level loop it replaced (PyTorch warp
+           and the sweep entry, in turns), and its single chunk; the
            ablation kernel at its tool's shape and count, its `full` variant
            also against the chunk kernel (bit for bit); the capacity probe
            at every size up to the card's limit and one above it
@@ -52,11 +54,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
   cli      the same job (16 pairs) from PNG files through the CLI, when an
            image library (cv2 or PIL) is installed; else a printed skip
   section  tvl1_flow_batched at (4, 512, 1024) and (1, 1024, 1024) with a
-           line naming the kernel that solved each level; then a `map` job
+           line naming the kernel that solved each level and the iterations
+           it computed; then a `map` job
            of 8 full-section pairs and a `flow` job of 2 through
            run_job_batched, TIFFs written, read back and gated
   level_api  tvl1_flow with the chunk-kernel level solver at 512x1024: one
-           sweep call per level and sweep
+           call into the chunk library and at most two launches per level
   features feature pre-alignment: the frame-deduplicated aligner on a
            chained stack of 17 strips with known affines (stage times), a
            job of 32 misaligned strip pairs with features on through
@@ -316,8 +319,9 @@ def chunk_bound_ms(n, h, w, blocks, total_iters):
 
 
 def kernel_wrappers():
-    """name -> wrapper, for the launch counts. The chunk kernel has two:
-    one chunk a call, and a whole sweep a call."""
+    """name -> wrapper, for the launch counts. The chunk kernel has three:
+    one chunk a call, a whole level a call (the per-level API's), and the
+    replaced sweep a call."""
     from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
         tvl1_blocked_level_solve,
     )
@@ -325,6 +329,7 @@ def kernel_wrappers():
     from optflow_tpu_torch.ops.tvl1_ablate_cuda import tvl1_ablate_chunks
     from optflow_tpu_torch.ops.tvl1_chunk_cuda import (
         tvl1_chunk,
+        tvl1_chunk_level_solve,
         tvl1_chunk_sweep,
     )
     from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
@@ -332,6 +337,7 @@ def kernel_wrappers():
     return {"tvl1_level_solve": tvl1_level_solve,
             "tvl1_blocked_level_solve": tvl1_blocked_level_solve,
             "tvl1_chunk": tvl1_chunk,
+            "tvl1_chunk_level_solve": tvl1_chunk_level_solve,
             "tvl1_chunk_sweep": tvl1_chunk_sweep,
             "tvl1_ablate_chunks": tvl1_ablate_chunks,
             "smem_fill_mean": smem_fill_mean}
@@ -427,10 +433,14 @@ def time_in_turns(old_fn, new_fn, reps=2):
     return (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2, ms
 
 
+def flow_diff(a, b):
+    return max(max_abs_diff(a[0], b[0]), max_abs_diff(a[1], b[1]))
+
+
 def kernels_level():
-    """The level kernel (csrc/tvl1_level.cu) against its plain version, the
-    blocked kernel and the per-iteration kernel it replaces (the library's
-    second entry point), which is also timed beside it in turns."""
+    """The level kernel (csrc/tvl1_level.cu: the persistent grid with the
+    exact exit) against its plain version, the plain emulation of its control
+    flow and the blocked kernel (the same grid, an exit every 16)."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
@@ -439,25 +449,17 @@ def kernels_level():
     )
     from optflow_tpu_torch.ops.tvl1_cuda import (
         LEVEL_SCHEDULE,
-        _launch_level,
         level_max_steps,
         tvl1_level_solve,
         tvl1_level_solve_plain,
         tvl1_level_solve_schedule_plain,
     )
 
-    def replaced(*args):
-        """The replaced kernel: (u1, u2, iters)."""
-        return _launch_level(*args, per_iteration=True)[:3]
-
-    def flow_diff(a, b):
-        return max(max_abs_diff(a[0], b[0]), max_abs_diff(a[1], b[1]))
-
     dev = torch.device("cuda")
     # Tolerance of the fixed-count comparison: kernel and plain version do
     # the same float32 arithmetic in another order (nvcc contracts to FMA),
     # and 50 accumulating iterations amplify the last-bit differences. The
-    # replaced kernel and the blocked kernel share the device code: 0.0.
+    # blocked kernel runs the same device code: 0.0.
     tol_fixed = 1e-3
     fixed = TVL1Params(nscales=1, warps=2, iterations=25, epsilon=0.0)
     full = TVL1Params(nscales=1)
@@ -476,34 +478,25 @@ def kernels_level():
         if tvl1_level_solve.launches != before + 1:
             fail("the wrapper did not count its launch")
         p = tvl1_level_solve_plain(*args, fixed)
-        old = replaced(*args, fixed)
         blocked = tvl1_blocked_level_solve(*args, fixed)
         torch.cuda.synchronize()
-        if tvl1_level_solve.launches != before + 1:
-            fail("the replaced kernel's entry point counted as a launch")
         diff = flow_diff(k, p)
         finite = bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all())
         moved = max_abs_diff(k[0], args[2])
-        iters_equal = bool((k[2] == p[2]).all() and (k[2] == old[2]).all())
-        old_ms, kernel_ms, turns = time_in_turns(
-            lambda: replaced(*args, fixed),
-            lambda: tvl1_level_solve(*args, fixed))
+        iters_equal = bool((k[2] == p[2]).all() and (k[2] == blocked[2]).all())
+        kernel_ms = time_cuda(lambda: tvl1_level_solve(*args, fixed), 2)
         plain_ms = time_cuda(lambda: tvl1_level_solve_plain(*args, fixed), 2)
         total_iters = int(k[2].sum())
         bound, bound_by = level_bound_ms(n, h, w, fixed.warps, total_iters)
         launched, memops = enqueued_launches(
             lambda: tvl1_level_solve(*args, fixed))
-        old_launched, old_memops = enqueued_launches(
-            lambda: replaced(*args, fixed))
         case = {
             "kernel": "tvl1_level_solve", "shape": list(shape),
             "warps": fixed.warps, "iterations": fixed.iterations,
             "epsilon": 0.0, "max_abs_du": diff, "tolerance": tol_fixed,
-            "max_abs_du_vs_replaced_kernel": flow_diff(k, old),
             "max_abs_du_vs_blocked_kernel": flow_diff(k, blocked),
             "flow_moved_px": moved, "iters_equal": iters_equal,
-            "kernel_ms": kernel_ms, "replaced_kernel_ms": old_ms,
-            "ms_old_new_new_old": turns, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             # kernels and memsets/copies one call put on the card, tallied
             # by the library; the steps its sweeps took inside the kernel,
@@ -512,32 +505,27 @@ def kernels_level():
             "grid_steps": steps, "grid_blocks": grid,
             "grid_steps_at_most":
             level_max_steps(fixed.warps, fixed.iterations),
-            "replaced_kernel_device_launches": old_launched,
-            "replaced_kernel_device_memops": old_memops,
         }
         cases.append(case)
         if not finite or not diff <= tol_fixed:
             emit({"phase": "kernels", "cases": cases})
             fail(f"kernel differs from its plain version at {shape}: "
                  f"max|du| {diff} > {tol_fixed}")
-        if case["max_abs_du_vs_replaced_kernel"] != 0.0 \
-                or case["max_abs_du_vs_blocked_kernel"] != 0.0:
+        if case["max_abs_du_vs_blocked_kernel"] != 0.0:
             emit({"phase": "kernels", "cases": cases})
-            fail(f"at epsilon 0 the level kernel must equal the kernel it "
-                 f"replaces and the blocked kernel bit for bit at {shape}")
+            fail(f"at epsilon 0 the level kernel must equal the blocked "
+                 f"kernel bit for bit at {shape}")
         if not iters_equal or moved < 1e-3:
             emit({"phase": "kernels", "cases": cases})
             fail(f"kernel iteration count or flow update wrong at {shape}")
         if shape == (32, 256, 1024):
             main_case = case
 
-        # full counts with the per-image exit, epsilon 0.01: old and new in
-        # turns; a rerun must give the same bits (no atomics). The counts
-        # against the replaced kernel's, whose error sums are taken with
-        # atomics in another order, and, at the small shape, against the
-        # plain emulation of the kernel's control flow, which adds its sums
-        # in PyTorch's order without FMA: an image within rounding of its
-        # threshold may stop an iteration apart, so no image more than 1
+        # full counts with the per-image exit, epsilon 0.01; a rerun must give
+        # the same bits (no atomics). The counts, at the small shape, against
+        # the plain emulation of the kernel's control flow, which adds its
+        # sums in PyTorch's order without FMA: an image within rounding of
+        # its threshold may stop an iteration apart, so no image more than 1
         # apart and at most one image in 16 apart at all (none was seen);
         # where the counts agree the emulation must have computed the same
         # iterations, speculation and replay included.
@@ -547,35 +535,25 @@ def kernels_level():
         work = tvl1_level_solve.last_work
         steps, grid = tvl1_level_solve.last_steps[:2].tolist()
         again = tvl1_level_solve(*args, full)
-        old = replaced(*args, full)
         torch.cuda.synchronize()
-        old_ms, kernel_ms, turns = time_in_turns(
-            lambda: replaced(*args, full),
-            lambda: tvl1_level_solve(*args, full))
+        kernel_ms = time_cuda(lambda: tvl1_level_solve(*args, full), 2)
         launched, memops = enqueued_launches(
             lambda: tvl1_level_solve(*args, full))
-        old_launched, old_memops = enqueued_launches(
-            lambda: replaced(*args, full))
         eps_case = {
             "kernel": "tvl1_level_solve", "shape": list(shape),
             "warps": full.warps, "iterations": full.iterations,
             "epsilon": full.epsilon, "iters_sum": int(k[2].sum()),
             "iters_computed_sum": int(work[0].sum()),
             "iters_min_max": [int(k[2].min()), int(k[2].max())],
-            "iters_equal_replaced_kernel": bool((k[2] == old[2]).all()),
-            "max_abs_du_vs_replaced_kernel": flow_diff(k, old),
             "rerun_bit_identical": torch.equal(k[0], again[0])
             and torch.equal(k[1], again[1]) and torch.equal(k[2], again[2]),
-            "kernel_ms": kernel_ms, "replaced_kernel_ms": old_ms,
-            "ms_old_new_new_old": turns,
+            "kernel_ms": kernel_ms,
             "device_launches": launched, "device_memops": memops,
             "grid_steps": steps, "grid_blocks": grid,
             "grid_steps_at_most":
             level_max_steps(full.warps, full.iterations),
-            "replaced_kernel_device_launches": old_launched,
-            "replaced_kernel_device_memops": old_memops,
         }
-        against = {"replaced_kernel": old[2]}
+        against = {}
         if n * h * w <= 1 << 18:
             e = tvl1_level_solve_schedule_plain(*args, full)
             against["emulation"] = e[2]
@@ -610,25 +588,23 @@ def kernels_level():
         if not bool((work[0] >= k[2]).all()):
             emit({"phase": "kernels", "cases": cases})
             fail(f"fewer iterations computed than counted at {shape}")
-        del k, p, old, blocked, again, args
+        del k, p, blocked, again, args
 
     # The per-image exit against the plain version on four images that stop
     # at different counts. Kernel and plain version sum every iteration's
     # error in another order and differ in the last bits of the flow (FMA),
     # so an image within rounding of its threshold could stop an iteration
     # apart. The sums are added in a fixed order and equal counts were seen
-    # in every run on an H100, so equal counts are the gate (the replaced
-    # kernel's atomics were given 3% + 3): a replay from the wrong buffer or
-    # one iteration short shows here. Solutions within 0.01 px of mean
+    # in every run on an H100, so equal counts are the gate: a replay from
+    # the wrong buffer or one iteration short shows here. Solutions within 0.01 px of mean
     # end-point error, the flow within 1e-3 px at every pixel.
     n, h, w = 4, 256, 1024
     i0, i1, u1, u2, truth_x = eps_exit_inputs(dev, h, w)
     k1, k2, kit = tvl1_level_solve(i0, i1, u1, u2, full)
     work = tvl1_level_solve.last_work
     torch.cuda.synchronize()
-    old_ms, eps_kernel_ms, turns = time_in_turns(
-        lambda: replaced(i0, i1, u1, u2, full),
-        lambda: tvl1_level_solve(i0, i1, u1, u2, full))
+    eps_kernel_ms = time_cuda(lambda: tvl1_level_solve(i0, i1, u1, u2, full),
+                              2)
     eps_plain_ms = time_cuda(
         lambda: tvl1_level_solve_plain(i0, i1, u1, u2, full), 1)
     p1, p2, pit = tvl1_level_solve_plain(i0, i1, u1, u2, full)
@@ -648,8 +624,7 @@ def kernels_level():
         "epe_kernel": epe_k, "epe_plain": epe_p, "epe_diff_tolerance": 0.01,
         "mean_abs_du": float(((k1 - p1).abs() + (k2 - p2).abs()).mean() / 2),
         "max_abs_du": flow_diff((k1, k2), (p1, p2)), "tolerance": tol_fixed,
-        "kernel_ms": eps_kernel_ms, "replaced_kernel_ms": old_ms,
-        "ms_old_new_new_old": turns, "plain_ms": eps_plain_ms,
+        "kernel_ms": eps_kernel_ms, "plain_ms": eps_plain_ms,
     }
     cases.append(eps_case)
     emit({"phase": "kernels", "cases": cases})
@@ -686,84 +661,174 @@ def eps_exit_inputs(dev, h, w):
 
 
 def kernels_blocked():
-    """The blocked level kernel (csrc/tvl1_blocked.cu) against its plain
-    version and against the level kernel, at a full section's finest level
-    and at a level only 2-D tiling can take."""
+    """The blocked level kernel (csrc/tvl1_blocked.cu: the persistent grid
+    with an exit every k = 16 iterations) against its plain version, the
+    per-chunk kernel it replaces (the library's second entry point, timed
+    beside it in turns) and the level kernel, at a full section's finest
+    level and at a level only 2-D tiling can take, 2 x 32 iterations and
+    full counts."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
         BLOCKED_K,
         tvl1_blocked_level_solve,
+        tvl1_blocked_level_solve_per_chunk,
         tvl1_blocked_level_solve_plain,
     )
-    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
+    from optflow_tpu_torch.ops.tvl1_cuda import (
+        level_max_steps,
+        tvl1_level_solve,
+    )
 
+    new = tvl1_blocked_level_solve
+    old = tvl1_blocked_level_solve_per_chunk
     dev = torch.device("cuda")
     # Fixed counts, epsilon 0: kernel, plain version and level kernel do the
     # same float32 arithmetic (FMA contraction and the order of nothing
-    # else differ), 64 accumulating iterations.
+    # else differ), 64 accumulating iterations. The replaced kernel and the
+    # level kernel run the same device code on the same tiles' pixels: 0.0.
     tol = 1e-3
     fixed = TVL1Params(nscales=1, warps=2, iterations=32, epsilon=0.0)
+    full = TVL1Params(nscales=1)
     cases = []
     main_case = None
     for shape in ((4, SECTION_H, SECTION_W), (1, 512, 8192)):
         n, h, w = shape
-        i0, i1, u1, u2 = (
+        args = tuple(
             torch.from_numpy(a).to(dev)
             for a in make_level_inputs(n, h, w, seed=31 + w)
         )
-        before = tvl1_blocked_level_solve.launches
-        k1, k2, kit = tvl1_blocked_level_solve(i0, i1, u1, u2, fixed)
+        before = new.launches
+        k = new(*args, fixed)
+        steps, grid = new.last_steps[:2].tolist()
         torch.cuda.synchronize()
-        if tvl1_blocked_level_solve.launches != before + 1:
+        if new.launches != before + 1:
             fail("the blocked wrapper did not count its launch")
-        p1, p2, pit = tvl1_blocked_level_solve_plain(i0, i1, u1, u2, fixed)
-        a1, a2, ait = tvl1_level_solve(i0, i1, u1, u2, fixed)
+        p = tvl1_blocked_level_solve_plain(*args, fixed)
+        o = old(*args, fixed)
+        a = tvl1_level_solve(*args, fixed)
+        again = new(*args, fixed)
         torch.cuda.synchronize()
-        diff = max(max_abs_diff(k1, p1), max_abs_diff(k2, p2))
-        diff_a = max(max_abs_diff(k1, a1), max_abs_diff(k2, a2))
-        finite = bool(torch.isfinite(k1).all() and torch.isfinite(k2).all())
-        ms = time_cuda(
-            lambda: tvl1_blocked_level_solve(i0, i1, u1, u2, fixed), 3)
-        a_ms = time_cuda(lambda: tvl1_level_solve(i0, i1, u1, u2, fixed), 3)
+        if new.launches != before + 2:
+            fail("the replaced kernel's entry point counted as a launch")
+        diff = flow_diff(k, p)
+        finite = bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all())
+        old_ms, ms, turns = time_in_turns(lambda: old(*args, fixed),
+                                          lambda: new(*args, fixed))
+        a_ms = time_cuda(lambda: tvl1_level_solve(*args, fixed), 3)
         plain_ms = time_cuda(
-            lambda: tvl1_blocked_level_solve_plain(i0, i1, u1, u2, fixed), 2)
-        bound, bound_by = level_bound_ms(n, h, w, fixed.warps, int(kit.sum()))
-        launched, memops = enqueued_launches(
-            lambda: tvl1_blocked_level_solve(i0, i1, u1, u2, fixed))
+            lambda: tvl1_blocked_level_solve_plain(*args, fixed), 1)
+        bound, bound_by = level_bound_ms(n, h, w, fixed.warps,
+                                         int(k[2].sum()))
+        launched, memops = enqueued_launches(lambda: new(*args, fixed))
+        old_launched, old_memops = enqueued_launches(
+            lambda: old(*args, fixed))
         case = {
             "kernel": "tvl1_blocked_level_solve", "shape": list(shape),
             "warps": fixed.warps, "iterations": fixed.iterations,
             "k": BLOCKED_K, "epsilon": 0.0, "max_abs_du": diff,
-            "max_abs_du_vs_level_kernel": diff_a, "tolerance": tol,
-            "flow_moved_px": max_abs_diff(k1, u1),
-            "iters": kit.tolist(), "kernel_ms": ms,
+            "max_abs_du_vs_replaced_kernel": flow_diff(k, o),
+            "max_abs_du_vs_level_kernel": flow_diff(k, a), "tolerance": tol,
+            "flow_moved_px": max_abs_diff(k[0], args[2]),
+            "rerun_bit_identical": all(
+                torch.equal(x, y) for x, y in zip(k, again)),
+            "iters": k[2].tolist(), "kernel_ms": ms,
+            "replaced_kernel_ms": old_ms, "ms_old_new_new_old": turns,
             "level_kernel_ms": a_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             # kernels and memsets/copies of one call, tallied by the library
             "device_launches": launched, "device_memops": memops,
+            "replaced_kernel_device_launches": old_launched,
+            "replaced_kernel_device_memops": old_memops,
+            "grid_steps": steps, "grid_blocks": grid,
+            "grid_steps_at_most":
+            level_max_steps(fixed.warps, fixed.iterations, BLOCKED_K),
         }
         cases.append(case)
-        if not finite or not diff <= tol or not diff_a <= tol:
+        if not finite or not diff <= tol:
             emit({"phase": "kernels", "cases": cases})
             fail(f"blocked kernel at {shape}: max|du| {diff} against its "
-                 f"plain version, {diff_a} against the level kernel, "
-                 f"tolerance {tol}")
-        if not (torch.equal(kit, pit) and torch.equal(kit, ait)) \
-                or case["flow_moved_px"] < 1e-3:
+                 f"plain version, tolerance {tol}")
+        if case["max_abs_du_vs_replaced_kernel"] != 0.0 \
+                or case["max_abs_du_vs_level_kernel"] != 0.0 \
+                or not case["rerun_bit_identical"]:
             emit({"phase": "kernels", "cases": cases})
-            fail(f"blocked kernel iteration count or flow update wrong "
+            fail(f"at epsilon 0 the blocked kernel must equal the kernel it "
+                 f"replaces, the level kernel and its own rerun bit for bit "
                  f"at {shape}")
+        if not all(torch.equal(k[2], x[2]) for x in (p, o, a)) \
+                or case["flow_moved_px"] < 1e-3 or launched != 1:
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"blocked kernel iteration count, flow update or launches "
+                 f"wrong at {shape}")
         if main_case is None:
             main_case = case
-        del i0, i1, u1, u2, k1, k2, p1, p2, a1, a2
+
+        # Full counts, epsilon 0.01. The new kernel adds a test's tile sums
+        # in tile order on tiles of even height, the replaced one in a block
+        # reduction on 32-row tiles, the plain version in PyTorch's order:
+        # an image within rounding of its threshold may stop one chunk
+        # (k iterations) apart. Reported; gated at one image at most, and the
+        # flow of the images whose counts agree equal to the replaced
+        # kernel's bit for bit. Nothing is speculated: iterations computed
+        # equal those counted.
+        k = new(*args, full)
+        work = new.last_work
+        steps, grid = new.last_steps[:2].tolist()
+        again = new(*args, full)
+        o = old(*args, full)
+        p = tvl1_blocked_level_solve_plain(*args, full)
+        torch.cuda.synchronize()
+        old_ms, ms, turns = time_in_turns(lambda: old(*args, full),
+                                          lambda: new(*args, full))
+        plain_ms = time_cuda(
+            lambda: tvl1_blocked_level_solve_plain(*args, full), 1)
+        bound, bound_by = level_bound_ms(n, h, w, full.warps, int(k[2].sum()))
+        launched, memops = enqueued_launches(lambda: new(*args, full))
+        agree = k[2] == o[2]
+        eps_case = {
+            "kernel": "tvl1_blocked_level_solve", "shape": list(shape),
+            "warps": full.warps, "iterations": full.iterations,
+            "k": BLOCKED_K, "epsilon": full.epsilon,
+            "iters_kernel": k[2].tolist(), "iters_plain": p[2].tolist(),
+            "iters_replaced_kernel": o[2].tolist(),
+            "iters_computed": work[0].tolist(),
+            "max_abs_du": flow_diff(k, p), "tolerance": tol,
+            "max_abs_du_vs_replaced_kernel_where_counts_agree":
+            flow_diff((k[0][agree], k[1][agree]), (o[0][agree], o[1][agree]))
+            if bool(agree.any()) else None,
+            "rerun_bit_identical": all(
+                torch.equal(x, y) for x, y in zip(k, again)),
+            "kernel_ms": ms, "replaced_kernel_ms": old_ms,
+            "ms_old_new_new_old": turns, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "device_launches": launched, "device_memops": memops,
+            "grid_steps": steps, "grid_blocks": grid,
+        }
+        cases.append(eps_case)
+        for name, counts in (("plain", p[2]), ("replaced_kernel", o[2])):
+            apart = (k[2] - counts).abs()
+            eps_case[f"iters_apart_{name}_max_images"] = [
+                int(apart.max()), int((apart > 0).sum())]
+            if int(apart.max()) > BLOCKED_K or int((apart > 0).sum()) > 1:
+                emit({"phase": "kernels", "cases": cases})
+                fail(f"blocked kernel counts at {shape} differ from the "
+                     f"{name}'s: {k[2].tolist()} vs {counts.tolist()}")
+        if not eps_case["rerun_bit_identical"] \
+                or not torch.equal(work[0], k[2]) \
+                or eps_case["max_abs_du_vs_replaced_kernel_where_counts_agree"] \
+                not in (0.0, None):
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"blocked kernel at full counts at {shape}: a rerun, the "
+                 f"iterations computed or the flow of agreeing images "
+                 f"differ")
+        del args, k, p, o, a, again
 
     # The per-image exit at full counts. Kernel and plain version test the
     # same rule (after every k-th iteration, on that iteration's error), so
     # the counts must be identical unless an error lands within rounding of
     # the threshold.
-    full = TVL1Params(nscales=1)
     n, h, w = 4, SECTION_H, SECTION_W
     i0, i1, u1, u2, truth_x = eps_exit_inputs(dev, h, w)
     k1, k2, kit = tvl1_blocked_level_solve(i0, i1, u1, u2, full)
@@ -805,23 +870,52 @@ def kernels_blocked():
     return main_case
 
 
+def old_chunk_level_loop(i0, i1, u1, u2, params):
+    """The per-level API's level solve before the chunk kernel's level entry,
+    from public functions: the gradient, the state stack and every sweep's
+    warp in plain PyTorch, one tvl1_chunk_sweep call a sweep.
+    Returns (u1, u2, iters)."""
+    import torch
+
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import tvl1_chunk_sweep
+    from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
+
+    n, h, w = i0.shape
+    thresh = params.epsilon ** 2 * h * w if params.epsilon > 0 else -1.0
+    i1x, i1y = centered_gradient(i1)
+    z = torch.zeros_like(u1)
+    state = torch.stack([u1, u2, z, z, z, z], dim=1)
+    iters = torch.zeros(n, dtype=torch.int32, device=i0.device)
+    for _ in range(params.warps):
+        _, wx, wy, _, rho = warp_backward(i0, i1, i1x, i1y, state[:, 0],
+                                          state[:, 1])
+        ro = torch.stack([wx, wy, rho], dim=1)
+        state, _ = tvl1_chunk_sweep(ro, state, params.iterations, thresh,
+                                    params, iters=iters)
+    return state[:, 0], state[:, 1], iters
+
+
 def kernels_chunk():
     """The chunk kernel (csrc/tvl1_chunk.cu) against its plain version. One
     chunk a call: tile mode at a full section's finest level, one-block mode
-    at the coarsest level of a strip with the in-kernel exit. A sweep a call,
-    the entry the per-level API runs: at that API's finest level (1, 512,
-    1024), which is the case the `kernels` line reports, at (4, 512, 1024)
-    and in one block."""
+    at the coarsest level of a strip with the in-kernel exit. A level a call,
+    the entry the per-level API runs (the persistent grid with an exit every
+    8 iterations, or the exact exit in one block): at that API's finest
+    level (1, 512, 1024), which is the case the `kernels` line reports, at
+    (4, 512, 1024) and at (32, 34, 137) in one block, each also against the
+    level loop it replaces (PyTorch warp + tvl1_chunk_sweep a sweep), in
+    turns."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.ops.tvl1_chunk_cuda import (
         CHUNK_K,
         chunk_geometry,
+        level_exit_every,
         tvl1_chunk,
+        tvl1_chunk_level_solve,
+        tvl1_chunk_level_solve_plain,
         tvl1_chunk_plain,
-        tvl1_chunk_sweep,
-        tvl1_chunk_sweep_plain,
     )
     from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
 
@@ -934,65 +1028,88 @@ def kernels_chunk():
         fail("an image left its loop above the threshold")
     del ro, state, ks, ps
 
-    # The sweep entry: up to 300 iterations with the level solve's exit, all
-    # chunks enqueued by one call, against the loop over the plain version.
-    # The device adds a chunk's tile sums in another order than the plain
-    # version's errs.sum(dim=1), so an image within rounding of its threshold
-    # may stop one chunk apart: counts equal or one chunk (tiles) / one
-    # iteration (one block) apart, state within 1e-4 where they agree.
+    # The level entry at full counts: one library call a level. Against its
+    # plain version (the plain level solve, an exit every 8 or every
+    # iteration): the device adds a test's tile sums in tile order, the
+    # plain version in PyTorch's, so an image within rounding of its
+    # threshold could stop a test apart; equal counts were seen, and they
+    # are the gate, the state within 1e-4 px. Against the old level loop, whose
+    # warp is PyTorch's: reported, counts at most one test apart.
+    new = tvl1_chunk_level_solve
     main_case = None
     for n, h, w in ((1, SECTION_H, SECTION_W), (4, SECTION_H, SECTION_W),
                     (32, 34, 137)):
-        ro, state = chunk_inputs(n, h, w, seed=83 + h)
+        args = tuple(
+            torch.from_numpy(a).to(dev)
+            for a in make_level_inputs(n, h, w, seed=83 + h)
+        )
         geo = chunk_geometry(h, w)
-        thresh = params.epsilon ** 2 * h * w
-        step = 1 if geo.one_block else CHUNK_K
-        iters = torch.zeros(n, dtype=torch.int32, device=dev)
-        piters = torch.zeros_like(iters)
-        before = tvl1_chunk_sweep.launches
-        ks, ke = tvl1_chunk_sweep(ro, state, params.iterations, thresh,
-                                  params, iters=iters)
+        step = level_exit_every(h, w)
+        before = new.launches
+        k = new(*args, params)
+        steps, grid = new.last_steps[:2].tolist()
         torch.cuda.synchronize()
-        if tvl1_chunk_sweep.launches != before + 1:
-            fail("the sweep wrapper did not count its launch")
-        ps, pe = tvl1_chunk_sweep_plain(ro, state, params.iterations, thresh,
-                                        params, iters=piters)
-        same = iters == piters
-        diff = max_abs_diff(ks[same], ps[same]) if bool(same.any()) else None
-        ms = time_cuda(lambda: tvl1_chunk_sweep(
-            ro, state, params.iterations, thresh, params), 3)
-        plain_ms = time_cuda(lambda: tvl1_chunk_sweep_plain(
-            ro, state, params.iterations, thresh, params), 1)
-        bound, bound_by = chunk_bound_ms(n, h, w, geo.blocks, int(iters.sum()))
-        launched, memops = enqueued_launches(lambda: tvl1_chunk_sweep(
-            ro, state, params.iterations, thresh, params))
+        if new.launches != before + 1:
+            fail("the level entry's wrapper did not count its launch")
+        p = tvl1_chunk_level_solve_plain(*args, params)
+        o = old_chunk_level_loop(*args, params)
+        again = new(*args, params)
+        torch.cuda.synchronize()
+        old_ms, ms, turns = time_in_turns(
+            lambda: old_chunk_level_loop(*args, params),
+            lambda: new(*args, params))
+        plain_ms = time_cuda(
+            lambda: tvl1_chunk_level_solve_plain(*args, params), 1)
+        bound, bound_by = level_bound_ms(n, h, w, params.warps,
+                                         int(k[2].sum()))
+        launched, memops = enqueued_launches(lambda: new(*args, params))
+        old_launched, old_memops = enqueued_launches(
+            lambda: old_chunk_level_loop(*args, params))
+        apart_old = (k[2] - o[2]).abs()
         case = {
-            "kernel": "tvl1_chunk", "entry": "tvl1_chunk_sweep",
+            "kernel": "tvl1_chunk", "entry": "tvl1_chunk_level_solve",
             "mode": "one block" if geo.one_block else "tiles",
-            "shape": [n, h, w], "iterations": params.iterations,
-            "thresh": thresh, "max_abs_du": diff, "tolerance": 1e-4,
-            "iters_kernel": iters.tolist(), "iters_plain": piters.tolist(),
-            "iters_may_differ_by": step,
+            "shape": [n, h, w], "warps": params.warps,
+            "iterations": params.iterations, "exit_every": step,
+            "max_abs_du": flow_diff(k, p), "tolerance": 1e-4,
+            "iters_kernel": k[2].tolist(), "iters_plain": p[2].tolist(),
+            "iters_old_loop": o[2].tolist(),
+            "iters_apart_old_loop_max_images": [
+                int(apart_old.max()), int((apart_old > 0).sum())],
+            "max_abs_du_vs_old_loop": flow_diff(k, o),
+            "rerun_bit_identical": all(
+                torch.equal(x, y) for x, y in zip(k, again)),
+            "kernel_ms": ms, "replaced_kernel_ms": old_ms,
+            "ms_old_new_new_old": turns, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
             # kernels and memsets/copies of one call, tallied by the library
+            # (the old loop's PyTorch kernels are not in its tally)
             "device_launches": launched, "device_memops": memops,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by,
+            "replaced_kernel_device_launches": old_launched,
+            "grid_steps": steps, "grid_blocks": grid,
         }
         cases.append(case)
         emit({"phase": "kernels", "cases": [case]})
-        if not bool(((iters - piters).abs() <= step).all()):
-            fail(f"chunk sweep at {(n, h, w)} ran {iters.tolist()} "
-                 f"iterations, its plain version {piters.tolist()}")
-        if diff is None or not diff <= 1e-4 \
-                or not bool(torch.isfinite(ks).all()):
-            fail(f"chunk sweep at {(n, h, w)} differs from its plain "
-                 f"version by {diff}")
-        if not (0 < int(iters.min()) and int(iters.max()) < params.iterations):
-            fail(f"chunk sweep at {(n, h, w)}: the exit was not taken: "
-                 f"{iters.tolist()}")
+        if not torch.equal(k[2], p[2]):
+            fail(f"chunk level entry at {(n, h, w)} ran {k[2].tolist()} "
+                 f"iterations, its plain version {p[2].tolist()}")
+        if not case["max_abs_du"] <= 1e-4 \
+                or not bool(torch.isfinite(k[0]).all()):
+            fail(f"chunk level entry at {(n, h, w)} differs from its plain "
+                 f"version by {case['max_abs_du']}")
+        if int(apart_old.max()) > step or not case["rerun_bit_identical"]:
+            fail(f"chunk level entry at {(n, h, w)}: counts more than a test "
+                 f"apart from the old loop's, or a rerun differs")
+        if launched != 1:
+            fail(f"chunk level entry at {(n, h, w)} put {launched} kernels "
+                 f"on the card, not one")
+        if not (0 < int(k[2].min())
+                and int(k[2].max()) < params.warps * params.iterations):
+            fail(f"chunk level entry at {(n, h, w)}: the exit was not taken: "
+                 f"{k[2].tolist()}")
         if main_case is None:
             main_case = case
-        del ro, state, ks, ps
+        del args, k, p, o, again
     main_case["single_chunk"] = chunk_case
     return main_case
 
@@ -1750,7 +1867,7 @@ def phase_section(results, tmp):
 
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.engine.batch_runner import run_job_batched
-    from optflow_tpu_torch.ops import tvl1_cuda
+    from optflow_tpu_torch.ops import tvl1_blocked_cuda, tvl1_cuda
     from optflow_tpu_torch.ops.tvl1 import solve_pyramid, tvl1_flow_batched
 
     dev = torch.device("cuda")
@@ -1774,7 +1891,11 @@ def phase_section(results, tmp):
             start.record()
             out = tvl1_cuda._kernel_level_solver(a, b, u1, u2, p, u3)
             end.record()
-            records.append((tuple(a.shape), start, end, out[3]))
+            blocked = tvl1_cuda.takes_blocked_kernel(*a.shape[-2:])
+            work = (tvl1_blocked_cuda.tvl1_blocked_level_solve if blocked
+                    else tvl1_cuda.tvl1_level_solve).last_work
+            records.append((tuple(a.shape), start, end, out[3], blocked,
+                            work))
             return out
 
         torch.cuda.synchronize()
@@ -1784,15 +1905,16 @@ def phase_section(results, tmp):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         levels = []
-        for (ln, lh, lw), start, end, iters in records:
+        for (ln, lh, lw), start, end, iters, blocked, work in records:
             total = int(iters.sum())
             bound, bound_by = level_bound_ms(ln, lh, lw, params.warps, total)
             levels.append({
                 "shape": [ln, lh, lw], "kernel":
-                "tvl1_blocked_level_solve"
-                if tvl1_cuda.takes_blocked_kernel(lh, lw)
-                else "tvl1_level_solve",
+                "tvl1_blocked_level_solve" if blocked else "tvl1_level_solve",
                 "kernel_ms": start.elapsed_time(end), "iters_sum": total,
+                # chunks run past an exit and replays included; none for the
+                # blocked kernel, whose tests fall on chunk ends
+                "iters_computed_sum": int(work[0].sum()),
                 "iters_max": int(iters.max()), "bound_ms": bound,
                 "bound_by": bound_by,
             })
@@ -1809,6 +1931,10 @@ def phase_section(results, tmp):
             fail(f"the {(n, h, w)} solve did not launch the blocked kernel")
         if counts["tvl1_level_solve"] < 1:
             fail(f"the {(n, h, w)} solve did not launch the level kernel")
+        if any(l["iters_computed_sum"] != l["iters_sum"] for l in levels
+               if l["kernel"] == "tvl1_blocked_level_solve"):
+            fail(f"the blocked kernel's levels of the {(n, h, w)} solve "
+                 f"computed other iterations than they counted")
         if not epe <= 0.5:
             fail(f"section solve at {(n, h, w)}: mean EPE {epe} > 0.5 px")
         del i0, i1, flow, flow2
@@ -1859,7 +1985,8 @@ def phase_section(results, tmp):
 
 def phase_level_api(results):
     """The per-level API: tvl1_flow with the level solver that
-    default_level_solver picks for CUDA tensors, the chunk kernel's."""
+    default_level_solver picks for CUDA tensors, the chunk kernel's level
+    entry: one library call and at most two kernel launches a level."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
@@ -1881,50 +2008,59 @@ def phase_level_api(results):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = read_launch_counts()
-    # the chunk kernel's launches for one pair, tallied by its library
-    chunk_enqueued, _ = enqueued_launches(
+    # the chunk library's kernel launches and memsets for one pair, tallied
+    # by the library (no other library runs on this path)
+    chunk_enqueued, chunk_memops = enqueued_launches(
         lambda: tvl1_flow(i0, i1, params, level_solver=solver))
-    # the path is bound by the host (the warp of every sweep is some hundred
-    # small PyTorch operations): two more runs show its spread
-    more_ms = []
+    # two more runs show the spread
+    more_ms, more_enqueue_ms = [], []
     for _ in range(2):
         t0 = time.perf_counter()
         tvl1_flow(i0, i1, params, level_solver=solver)
+        more_enqueue_ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         more_ms.append((time.perf_counter() - t0) * 1e3)
     # what the card ran for one pair, where the profiler can trace it (else
-    # None and 0): the chunk kernel's launches and time, and everything
-    # else (the plain PyTorch pyramid, gradient and warp of every sweep)
+    # None and 0): the level kernel's launches, and everything else (the
+    # plain PyTorch pyramid and the flow's upscaling between levels)
     trace = trace_device(
         lambda: tvl1_flow(i0, i1, params, level_solver=solver))
-    chunk_launches = sum(c for name, c in trace["kernels"].items()
-                         if "chunk_" in name)
+    level_launches = sum(c for name, c in trace["kernels"].items()
+                         if "level_kernel" in name)
     epe = float(torch.hypot(flow[..., 0] - DX, flow[..., 1] - DY).mean())
     emit({"phase": "level_api", "shape": [SECTION_H, SECTION_W],
           "solver": solver.__name__, "epe_px": epe, "gate_px": 0.5,
           "solve_ms": ms, "enqueue_ms": enqueue_ms,
           "solve_ms_two_more_runs": more_ms,
+          "enqueue_ms_two_more_runs": more_enqueue_ms,
           "device_busy_ms": trace["busy_ms"], "profiler": trace["note"],
-          "chunk_kernel_launches": chunk_enqueued,
-          "chunk_kernel_launches_traced": chunk_launches,
+          "chunk_library_launches": chunk_enqueued,
+          "chunk_library_memops": chunk_memops,
+          "chunk_library_launches_at_most": 2 * params.nscales,
+          "level_kernel_launches_traced": level_launches,
           "device_kernels_traced": sum(trace["kernels"].values()),
           "device_memops_traced": trace["memops"],
-          "wrapper_launches": counts["tvl1_chunk_sweep"],
-          "wrapper_launches_expected": params.nscales * params.warps,
+          "wrapper_launches": counts["tvl1_chunk_level_solve"],
+          "wrapper_launches_expected": params.nscales,
           "launches": counts})
     if tuple(flow.shape) != (SECTION_H, SECTION_W, 2) or not bool(
             torch.isfinite(flow).all()):
         fail("level_api flow: wrong shape or not finite")
-    # one call into the chunk kernel's library per level and sweep
-    if counts["tvl1_chunk_sweep"] != params.nscales * params.warps:
-        fail(f"tvl1_flow(level_solver=...) launched the chunk kernel's sweep "
-             f"{counts['tvl1_chunk_sweep']} times, expected one per level and "
-             f"sweep: {params.nscales * params.warps}")
+    # one call into the chunk kernel's library per level, and nothing else
+    # of it
+    if counts["tvl1_chunk_level_solve"] != params.nscales \
+            or counts["tvl1_chunk_sweep"] or counts["tvl1_chunk"]:
+        fail(f"tvl1_flow(level_solver=...) called the chunk kernel's "
+             f"library {counts}, expected the level entry once per level: "
+             f"{params.nscales}")
+    if chunk_enqueued > 2 * params.nscales:
+        fail(f"the chunk library enqueued {chunk_enqueued} kernels for "
+             f"{params.nscales} levels, more than two a level")
     if not epe <= 0.5:
         fail(f"level_api: mean EPE {epe} > 0.5 px")
-    # the chunk kernel's launches on this path, through either wrapper
+    # the chunk kernel's launches on this path
     results.setdefault("launches", {})["tvl1_chunk"] = (
-        counts["tvl1_chunk"] + counts["tvl1_chunk_sweep"])
+        counts["tvl1_chunk_level_solve"])
 
 
 # --------------------------------------------------------------------------

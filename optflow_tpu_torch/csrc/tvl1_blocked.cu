@@ -3,72 +3,63 @@
 // Replaces the TPU's blocked level kernel: optflow_tpu/ops/tvl1_pallas.py,
 // `_make_blocked_kernel`, launched by `_run_blocked` from
 // `_blocked_level_fn`. Like that kernel, one call solves a whole pyramid
-// level for a batch of images — the gradient of i1, then `warps` sweeps,
-// each an exact backward warp stored to device memory once and
-// C = ceil(iterations / k) chunks of k primal-dual iterations (the last of
-// m_last) that run on halo-extended tiles resident in on-chip memory — with
-// a per-image epsilon exit at chunk granularity, and returns the flow and
-// the iterations each image ran. It is the kernel for levels too large for
-// the fused kernel's counterpart (tvl1_level.cu), which goes to device
-// memory once per iteration; this one goes once per k iterations.
+// level for a batch of images (the gradient of i1, then `warps` sweeps, each
+// an exact backward warp and up to `iterations` primal-dual iterations on
+// tiles held in on-chip memory) with a per-image epsilon exit tested once
+// every k iterations of a sweep, on that iteration's error, and returns the
+// flow and the iterations each image ran. It is the kernel for the levels
+// above the JAX package's fused budget.
 //
-// What differs on this card, and what the design does about it
-// ------------------------------------------------------------
-// * Tiles. The TPU kernel streams row blocks of the level's full width
-//   through its on-chip memory and cannot block columns. A thread block has
-//   227 KB of shared memory, so the level is cut in 2-D: tiles of 32 x 64
-//   pixels with a halo of k pixels on every side. Nine floats per pixel are
-//   resident (the state u1, u2, p11, p12, p21, p22 and the sweep's i1wx,
-//   i1wy, rho_c): at the default k = 16 the window is 64 x 96 x 36 B =
-//   221,184 B, the most that fits with the reduction's scratch beside it, so
-//   one block runs per SM, with 1024 threads. 32 x 64 was chosen because
-//   rows of 64 floats keep the loads and stores contiguous, the tile
-//   divides the usual level sizes, and no tile with a 16-pixel halo that
-//   fits recomputes much less (a 48 x 48 tile: 2.8 times its pixels against
-//   3.0). Any width works: a (1, 512, 8192) level is 2,048 tiles.
-// * Halo reach. One iteration reads p to the left and above and the new u
-//   to the right and below, so k iterations need k exact pixels around a
-//   tile; the window's edge goes wrong one pixel per iteration and never
-//   reaches the tile. Windows are not clamped inward at the image's border
-//   as the TPU kernel's are: the part of a window outside the image holds
-//   zeros and is never read by a pixel of the image, because the boundary
-//   conditions are those of the real h x w.
-// * No order between blocks. The TPU grid is sequential, so that kernel
-//   carries "which state buffer is current" in one scalar and sums the
-//   previous chunk's errors as it goes. Here a chunk is one launch: it reads
-//   one state buffer and writes the other (a tile's halo is its neighbours'
-//   tile from the previous chunk). Images stop at different chunks, so which
-//   buffer is current differs per image: cur[t & 1][n] is the buffer that
-//   holds image n's state before chunk t. Every block of launch t reads
-//   slot t & 1 and block 0 of each image writes slot (t + 1) & 1, so no
-//   launch reads what it writes.
-// * Epsilon exit. err[n][t][tile] is the sum of |u_new - u|^2 of chunk t's
-//   LAST iteration over the tile's real pixels. Chunk t of image n runs iff
-//   it starts a sweep or the sum over tiles of err[n][t-1] is > thresh;
-//   every block takes that sum itself, in the same order, so all blocks of
-//   an image decide alike. A chunk that does not run writes 0, so the stop
-//   is sticky within a sweep. thresh < 0 disables the exit. Nothing is read
-//   back by the host inside a level.
-// * The warp is the exact 2x2 gather (tvl1_common.cuh): no shift bound, no
-//   extra halo rows, no violation telemetry. Divisions are exact.
+// Design: the persistent level grid of tvl1_grid.cuh, which the level kernel
+// (tvl1_level.cu, whose notes describe it) runs with the exact exit, here
+// with an exit period E = k (16 by default): one cooperative launch a level,
+// two resident blocks of 512 threads a multiprocessor, chunks of at most 4
+// iterations on 32 x 64 tiles with a halo of 4 (the window 1.4 times the
+// tile, 103,680 B), the sweep's step loop ended on the card with a queue of
+// the images that still have work, the gradient, the warp and the output in
+// the same launch, the tile sums added in tile order (reruns bit-identical).
+// A chunk never runs past the next multiple of k, so each test falls on a
+// chunk's last iteration: nothing is speculated or replayed, the iterations
+// computed are the iterations counted, and a k that is not a multiple of 4
+// only cuts some chunks short (k = 5: 4, 1, 4, 1, ...). k = 1 is the exact
+// exit and runs the level kernel's instantiation.
 //
-// What bounds it
-// --------------
-// Per chunk and tile a block loads 9 x 64 x 96 floats and stores 6 x 32 x 64
-// (about 270 KB against 2,048 pixels x k iterations x 63 float operations),
-// and each iteration makes about 29 four-byte shared-memory accesses per
-// window pixel on 3 times the tile's pixels: the shared-memory traffic of
-// the recomputed halo is the limit, not device memory and not arithmetic.
-// Holding a thread's pixels in registers across the k iterations is the
-// known way to cut it; it is not taken here.
+// What bounds it: as for the level kernel, the tile iteration on 1.4 times
+// the tile's pixels (about 29 shared-memory accesses and 63 float operations
+// per window pixel, two block-wide barriers an iteration: its instruction
+// stream, tvl1_common.cuh), then the chunks' device-memory traffic, 19 B per
+// pixel and iteration at chunks of 4. The arithmetic's float rate and device
+// memory are far from it (PERF.md: bound against time).
+//
+// Tried: the design of the first port is kept, until ROADMAP.md deletes it,
+// as the second entry point tvl1_blocked_level_solve_per_chunk (namespace
+// per_chunk), reached only by chip_smoke.py and a test on the card, which
+// time the two in turns and compare them bit for bit: one launch per chunk
+// of k iterations on 32 x 64 tiles with a halo of k, the window at k = 16
+// 64 x 96 x 36 B = 221,184 B (3.0 times the tile, one block of 1,024 threads
+// a multiprocessor, nothing overlapping a tile's loads and stores), a
+// per-image table cur[t & 1][n] of the buffer that holds the state, the exit
+// decided in every block of the launch after a chunk from the tile sums of
+// the one before, a stopped image's later launches left empty; 9 kernels and
+// 2 memsets a call at 2 x 32 iterations, 4.18 ms at (4, 512, 1024) against
+// the level kernel's 3.07 on the same inputs (PERF.md).
 
-#include "tvl1_common.cuh"
+#include "tvl1_grid.cuh"
 
 namespace {
 
+constexpr int MAX_K = 16;  // the JAX package's _BLOCKED_K, the most the
+                           // replaced design's window of (32 + 2k) x (64 + 2k)
+                           // x 36 B fits in 227 KB
+
+// ---------------------------------------------------------------------------
+// The replaced design: one launch per chunk of k iterations, tiles with a
+// halo of k. Reached only through tvl1_blocked_level_solve_per_chunk.
+// ---------------------------------------------------------------------------
+namespace per_chunk {
+
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 64;
-constexpr int MAX_K = 16;  // (32 + 2k) x (64 + 2k) x 36 B must fit 227 KB
 
 // The six state planes of image n in buffer `buf`:
 // state[buf][n][c][h][w].
@@ -183,42 +174,73 @@ using ChunkKernel = void (*)(float*, const float*, float*, int*, int*, int,
                              int, int, int, int, int, int, int, int, float,
                              float, float, float);
 
+}  // namespace per_chunk
+
 }  // namespace
 
 extern "C" {
 
 int tvl1_blocked_max_k() { return MAX_K; }
 
-// Floats of scratch a level of n images of h x w needs: 2 x 6 state planes,
-// gx, gy, and the 3 warped planes.
-long long tvl1_blocked_scratch_floats(int n, int h, int w) {
-  return 17LL * n * h * w;
+// Enqueue one level solve on `stream`: three memsets (tables, iters, work)
+// and one cooperative kernel launch, the exit tested after every k-th
+// iteration of a sweep (1 <= k <= 16). All pointers are device memory:
+//   i0, i1, u1_in, u2_in : (n, h, w) float32, read only
+//   u1_out, u2_out       : (n, h, w) float32
+//   iters                : (n) int32, on return the iterations each image ran
+//   work                 : (2, n) int32, on return the iterations computed
+//                          for each image (equal to iters for k > 1) and
+//                          the chunks that ran
+//   scratch              : tvl1_level_scratch_floats(n, h, w) floats
+//   err                  : tvl1_level_err_floats(n, h, w) floats
+//   tables               : tvl1_level_table_ints(n, warps, iterations, k)
+//                          int32; on return entry 4 * n is the number of
+//                          grid steps the call took, entry 4 * n + 1 the
+//                          blocks of its grid
+// thresh < 0 disables the exit. Does not synchronise. Returns 0 or the first
+// CUDA error code.
+int tvl1_blocked_level_solve(const float* i0, const float* i1,
+                             const float* u1_in, const float* u2_in,
+                             float* u1_out, float* u2_out, int* iters,
+                             int* work, float* scratch, float* err,
+                             int* tables, int n, int h, int w, int warps,
+                             int iterations, int k, float l_t, float theta,
+                             float taut, float thresh, void* stream_ptr) {
+  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  const LevelArgs args{i0,    i1,    u1_in,   u2_in, u1_out, u2_out,
+                       iters, work,  scratch, err,   tables, n,
+                       h,     w,     warps,   iterations,    k,
+                       l_t,   theta, taut,    thresh};
+  return k == 1 ? level_solve<true>(args, stream_ptr)
+                : level_solve<false>(args, stream_ptr);
 }
 
-// Floats of the error table: one per image, chunk and tile.
-long long tvl1_blocked_err_floats(int n, int h, int w, int warps,
-                                  int iterations, int k) {
-  long long tiles = (long long)((w + TILE_W - 1) / TILE_W) *
-                    ((h + TILE_H - 1) / TILE_H);
+// Floats of the replaced design's error table: one per image, chunk and
+// tile.
+long long tvl1_blocked_per_chunk_err_floats(int n, int h, int w, int warps,
+                                            int iterations, int k) {
+  long long tiles = (long long)((w + per_chunk::TILE_W - 1) /
+                                per_chunk::TILE_W) *
+                    ((h + per_chunk::TILE_H - 1) / per_chunk::TILE_H);
   long long chunks = (long long)warps * ((iterations + k - 1) / k);
   return (long long)n * (chunks > 0 ? chunks : 1) * tiles;
 }
 
-// Enqueue one level solve on `stream`. All pointers are device memory:
+// The replaced design, same function: see `namespace per_chunk`. All
+// pointers are device memory:
 //   i0, i1, u1_in, u2_in : (n, h, w) float32, read only
 //   u1_out, u2_out       : (n, h, w) float32
 //   iters                : (n) int32, on return the iterations each image ran
-//   scratch              : tvl1_blocked_scratch_floats(n, h, w) floats
-//   err                  : tvl1_blocked_err_floats(...) floats
+//   scratch              : tvl1_level_scratch_floats(n, h, w) floats
+//   err                  : tvl1_blocked_per_chunk_err_floats(...) floats
 //   cur                  : 2 * n int32
 // Does not synchronise. Returns 0 or the first CUDA error code.
-int tvl1_blocked_level_solve(const float* i0, const float* i1,
-                             const float* u1_in, const float* u2_in,
-                             float* u1_out, float* u2_out, int* iters,
-                             float* scratch, float* err, int* cur, int n,
-                             int h, int w, int warps, int iterations, int k,
-                             float l_t, float theta, float taut, float thresh,
-                             void* stream_ptr) {
+int tvl1_blocked_level_solve_per_chunk(
+    const float* i0, const float* i1, const float* u1_in, const float* u2_in,
+    float* u1_out, float* u2_out, int* iters, float* scratch, float* err,
+    int* cur, int n, int h, int w, int warps, int iterations, int k,
+    float l_t, float theta, float taut, float thresh, void* stream_ptr) {
+  namespace pc = per_chunk;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (n <= 0 || n > 65535 || h < 2 || w < 2 || warps < 0 || iterations < 0 ||
       k < 1 || k > MAX_K)
@@ -232,7 +254,7 @@ int tvl1_blocked_level_solve(const float* i0, const float* i1,
 
   // every image starts in buffer 0
   dim3 ogrid((unsigned)((hw + 255) / 256), n);
-  init_state_kernel<<<ogrid, 256, 0, stream>>>(u1_in, u2_in, state, hw);
+  pc::init_state_kernel<<<ogrid, 256, 0, stream>>>(u1_in, u2_in, state, hw);
   CHECK_LAUNCH();
   CHECK_MEMOP(cudaMemsetAsync(cur, 0, 2 * (size_t)n * sizeof(int), stream));
   CHECK_MEMOP(cudaMemsetAsync(iters, 0, (size_t)n * sizeof(int), stream));
@@ -242,25 +264,25 @@ int tvl1_blocked_level_solve(const float* i0, const float* i1,
   gradient_kernel<<<pgrid, pblock, 0, stream>>>(i1, gx, gy, h, w);
   CHECK_LAUNCH();
 
-  const int tiles_x = (w + TILE_W - 1) / TILE_W;
-  const int tiles_y = (h + TILE_H - 1) / TILE_H;
+  const int tiles_x = (w + pc::TILE_W - 1) / pc::TILE_W;
+  const int tiles_y = (h + pc::TILE_H - 1) / pc::TILE_H;
   const dim3 grid(tiles_x * tiles_y, n);
-  const size_t bytes = (size_t)WINDOW_PLANES * (TILE_H + 2 * k) *
-                       (TILE_W + 2 * k) * sizeof(float);
+  const size_t bytes = (size_t)WINDOW_PLANES * (pc::TILE_H + 2 * k) *
+                       (pc::TILE_W + 2 * k) * sizeof(float);
   const int C = (iterations + k - 1) / k;
   const int m_last = iterations - (C - 1) * k;
   const int T = warps * C;
 
-  ChunkKernel kernel = k == 16  ? blocked_chunk_kernel<TILE_W + 32>
-                       : k == 8 ? blocked_chunk_kernel<TILE_W + 16>
-                                : blocked_chunk_kernel<0>;
+  pc::ChunkKernel kernel = k == 16  ? pc::blocked_chunk_kernel<pc::TILE_W + 32>
+                           : k == 8 ? pc::blocked_chunk_kernel<pc::TILE_W + 16>
+                                    : pc::blocked_chunk_kernel<0>;
   CHECK_CALL(cudaFuncSetAttribute((const void*)kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bytes));
 
   for (int s = 0; s < warps; ++s) {
     const int t0 = s * C;
-    warp_kernel<<<pgrid, pblock, 0, stream>>>(
+    pc::warp_kernel<<<pgrid, pblock, 0, stream>>>(
         i0, i1, gx, gy, state, cur + (t0 & 1) * n, warped, n, h, w);
     CHECK_LAUNCH();
     for (int c = 0; c < C; ++c) {
@@ -271,8 +293,8 @@ int tvl1_blocked_level_solve(const float* i0, const float* i1,
     }
   }
 
-  output_kernel<<<ogrid, 256, 0, stream>>>(state, cur + (T & 1) * n, u1_out,
-                                           u2_out, n, hw);
+  pc::output_kernel<<<ogrid, 256, 0, stream>>>(state, cur + (T & 1) * n,
+                                               u1_out, u2_out, n, hw);
   CHECK_LAUNCH();
   return 0;
 }

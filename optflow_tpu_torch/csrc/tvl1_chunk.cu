@@ -30,35 +30,51 @@
 // state is copied, its errors are 0): the caller stops an image's later
 // chunks that way without reading anything back.
 //
-// tvl1_chunk_sweep runs a whole sweep in one call: the TPU package's level
-// solve loops over its chunk kernel inside one compiled program; a loop in
-// Python over tvl1_chunk costs the host one wrapper call, two allocations
-// and two small PyTorch operations per chunk (1,900 a 512 x 1024 pair, all of
-// its 210 ms). The sweep entry enqueues the ceil(iterations / 8) tile launches
-// from the C function, and each launch decides per image on the card whether
-// it runs, from the tile sums the launch before it left: every block of an
-// image adds that row itself, in the same order, so all decide alike. State
-// and errors ping-pong between two buffers so that the last launch leaves
-// the result in the output; a stopped image is copied through (48 B a pixel
-// and launch: a per-image current-buffer table as in the blocked kernel
-// would save that, and is not taken here).
+// tvl1_chunk_level_solve solves a whole pyramid level in one call: the
+// gradient of i1, the state set-up, each sweep's exact warp and the sweeps
+// with the chunk kernel's exit rule, in ONE cooperative launch of the
+// persistent level grid (tvl1_grid.cuh; the level kernel's notes in
+// tvl1_level.cu describe it). A level in tiles runs it with an exit every
+// CHUNK_K = 8 iterations: an image stops after the first 8th iteration whose
+// sum over the tiles is <= thresh, as after the first chunk of 8 whose last
+// error is; chunks of at most 4 on the grid's halo of 4 (the window 1.4
+// times the tile, not 1.9), two blocks a multiprocessor, the step loop ended
+// on the card with a queue of the images that still run, nothing copied for
+// an image that has stopped. A level that fits one block takes the exact
+// per-iteration exit, through the grid's exact instantiation (the level
+// kernel's): one block per tile of each image, not one block holding the
+// image across the sweeps, which would be a second kernel for levels of a
+// few thousand pixels. The per-level API calls it once a level; before, it
+// enqueued the gradient, a state stack and every sweep's warp as plain
+// PyTorch (about 570 small kernels a pair a level) and one sweep call a
+// sweep. What bounds it is the grid's: the tile iteration's instruction
+// stream.
 //
-// What bounds it: in tile mode a launch reads 9 and writes 6 floats per
-// pixel of device memory for m iterations of 63 float operations each, and
-// the iterations themselves run from shared memory (about 29 four-byte
-// accesses per pixel and iteration, on 1.9 times the pixels), so at m = 8 the
-// shared-memory traffic, not device memory, is the limit. In one-block mode
-// a level is a few thousand pixels: latency of the two block-wide barriers
-// per iteration. A sweep of a single image is bound by its launches: 38 of
-// them, most of which find the image stopped and copy it.
+// tvl1_chunk_sweep, the replaced path, runs one sweep on a warp computed
+// outside: the ceil(iterations / 8) tile launches enqueued from the C
+// function, each deciding per image on the card whether it runs, from the
+// tile sums the launch before it left (every block of an image adds that
+// row itself, in the same order, so all decide alike); state and errors
+// ping-pong between two buffers so that the last launch leaves the result in
+// the output, and a stopped image is copied through (48 B a pixel and
+// launch). It stays, until ROADMAP.md deletes it, so that chip_smoke.py can
+// time the old level loop against the level entry; no path of the package
+// selects it.
+//
+// What bounds the single chunk: in tile mode a launch reads 9 and writes 6
+// floats per pixel of device memory for m iterations of 63 float operations
+// each, and the iterations themselves run from shared memory (about 29
+// four-byte accesses per pixel and iteration, on 1.9 times the pixels), so
+// at m = 8 the shared-memory traffic, not device memory, is the limit. In
+// one-block mode a level is a few thousand pixels: latency of the two
+// block-wide barriers per iteration.
 
-#include "tvl1_common.cuh"
+#include "tvl1_grid.cuh"
 
 namespace {
 
 constexpr int CHUNK_K = 8;  // halo = most iterations per launch, tile mode
-constexpr int TILE_H = 32;
-constexpr int TILE_W = 64;
+// (the tiles are the grid's 32 x 64: TILE_H, TILE_W of tvl1_grid.cuh)
 constexpr int CHUNK_WIN_W = TILE_W + 2 * CHUNK_K;
 constexpr int CHUNK_WIN_H = TILE_H + 2 * CHUNK_K;
 
@@ -274,6 +290,30 @@ int tvl1_chunk_sweep(const float* ro, const float* state, float* out,
     prev = cur;
   }
   return 0;
+}
+
+// Enqueue one level solve on `stream`: three memsets (tables, iters, work)
+// and one cooperative kernel launch. A level in tiles tests the exit after
+// every CHUNK_K-th iteration of a sweep; one_block != 0 (the caller has found
+// that the level fits one block) takes the exact per-iteration exit. The
+// arguments are tvl1_level_solve's (tvl1_level.cu), the tables sized by
+// tvl1_level_table_ints(n, warps, iterations, one_block ? 1 : CHUNK_K).
+// Does not synchronise. Returns 0 or the first CUDA error code.
+int tvl1_chunk_level_solve(const float* i0, const float* i1,
+                           const float* u1_in, const float* u2_in,
+                           float* u1_out, float* u2_out, int* iters,
+                           int* work, float* scratch, float* err,
+                           int* tables, int n, int h, int w, int warps,
+                           int iterations, int one_block, float l_t,
+                           float theta, float taut, float thresh,
+                           void* stream_ptr) {
+  const LevelArgs args{i0,    i1,    u1_in,   u2_in, u1_out, u2_out,
+                       iters, work,  scratch, err,   tables, n,
+                       h,     w,     warps,   iterations,
+                       one_block ? 1 : CHUNK_K,
+                       l_t,   theta, taut,    thresh};
+  return one_block ? level_solve<true>(args, stream_ptr)
+                   : level_solve<false>(args, stream_ptr);
 }
 
 const char* tvl1_chunk_error_string(int code) {

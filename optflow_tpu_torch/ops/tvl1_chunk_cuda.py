@@ -12,13 +12,19 @@ level runs in 32 x 64 tiles, at most :data:`CHUNK_K` iterations per launch.
 On a CUDA tensor the wrapper launches the kernel or raises; a CPU tensor
 takes :func:`tvl1_chunk_plain`.
 
-:func:`tvl1_chunk_sweep` runs a whole sweep, up to ``iterations`` iterations
-with the level solve's exit rule: on the card one call into the library
-enqueues every chunk, and each launch decides on the device which images it
-still runs. :func:`tvl1_flow_level_cuda_batched` solves one pyramid level
-with it: the gradient and the exact gather warp once per sweep by
-``ops/warp.py`` (they are no part of the kernel this replaces either), one
-``tvl1_chunk_sweep`` call for the sweep's iterations; nothing is read back.
+:func:`tvl1_chunk_level_solve` solves one whole pyramid level with the
+chunk kernel's exit rule (after every :data:`CHUNK_K`-th iteration of a
+sweep in tile mode, after every iteration in one-block mode): on the card
+ONE call into the library, one cooperative launch of the persistent level
+grid (``csrc/tvl1_grid.cuh``) that computes the gradient, every sweep's
+exact warp and the sweeps; a CPU tensor takes
+:func:`tvl1_chunk_level_solve_plain`. :func:`tvl1_flow_level_cuda_batched`,
+the per-level API's solver, calls it once a level; nothing is read back.
+
+:func:`tvl1_chunk_sweep` is the path it replaces, kept until ``ROADMAP.md``
+deletes it: one sweep on a warp computed outside, every chunk enqueued by one
+call into the library, each launch deciding on the device which images it
+still runs. No path of the package selects it.
 
 The library is compiled at the first CUDA call (``ops/_build.py``).
 """
@@ -33,7 +39,8 @@ import torch
 from optflow_tpu_torch.core.config import TVL1Params
 from optflow_tpu_torch.ops import _build
 from optflow_tpu_torch.ops.tvl1 import _iteration, _LevelState, level_solve_plain
-from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
+from optflow_tpu_torch.ops.tvl1_cuda import _check_inputs as _check_level
+from optflow_tpu_torch.ops.tvl1_cuda import bind_grid, launch_grid
 
 # Halo width = most iterations per launch in tile mode: the JAX package's
 # _DEFAULT_K (optflow_tpu/ops/tvl1_pallas.py:100). The tile is the kernel's
@@ -68,6 +75,7 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load_library("tvl1_chunk")
+        bind_grid(lib, "tvl1_chunk_level_solve", extra_ints=1)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tvl1_chunk.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 4 + [ptr]
         lib.tvl1_chunk.restype = i32
@@ -332,6 +340,68 @@ def tvl1_chunk_sweep(
 tvl1_chunk_sweep.launches = 0
 
 
+def level_exit_every(h: int, w: int) -> int:
+    """The chunk kernel's exit period at an ``h x w`` level: every
+    iteration in one-block mode, every :data:`CHUNK_K` in tiles."""
+    return 1 if chunk_geometry(h, w).one_block else CHUNK_K
+
+
+def tvl1_chunk_level_solve_plain(
+    i0: torch.Tensor,  # (N, H, W) float32
+    i1: torch.Tensor,
+    u1: torch.Tensor,
+    u2: torch.Tensor,
+    params: TVL1Params,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`tvl1_chunk_level_solve`: the plain
+    level solve with the exit tested every ``level_exit_every(h, w)``
+    iterations, on whatever device the tensors lie."""
+    _check_level(i0, i1, u1, u2, params)
+    a, b, _, iters = level_solve_plain(
+        i0, i1, u1, u2, params, exit_every=level_exit_every(*i0.shape[-2:]))
+    return a, b, iters
+
+
+def tvl1_chunk_level_solve(
+    i0: torch.Tensor,  # (N, H, W) float32
+    i1: torch.Tensor,
+    u1: torch.Tensor,
+    u2: torch.Tensor,
+    params: TVL1Params,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Solve one pyramid level for a batch with the chunk kernel's exit
+    rule: the dual state zero at level entry and kept across the ``warps``
+    sweeps, each one exact warp and up to ``iterations`` updates; with
+    ``epsilon > 0`` a tile-mode level tests an image after every
+    :data:`CHUNK_K`-th iteration of a sweep, on that iteration's sum of
+    squared updates, a one-block level after every iteration. Returns
+    ``(u1, u2, iters)``.
+
+    CUDA tensors: one call into the library, one kernel launch and its
+    memsets, nothing of PyTorch but the outputs' allocation
+    (``tvl1_chunk_level_solve.launches`` counts the calls; ``last_work`` and
+    ``last_steps`` as ``tvl1_level_solve``'s); a failure raises. The tile
+    sums are added in tile order, not in the plain version's, so an image
+    within rounding of its threshold may stop a test apart. CPU tensors take
+    the plain version."""
+    if not i0.is_cuda:
+        return tvl1_chunk_level_solve_plain(i0, i1, u1, u2, params)
+    h, w = i0.shape[-2:]
+    u1_out, u2_out, iters, work, steps = launch_grid(
+        _library(), "tvl1_chunk_level_solve", i0, i1, u1, u2, params,
+        level_exit_every(h, w), int(chunk_geometry(h, w).one_block),
+    )
+    tvl1_chunk_level_solve.launches += 1
+    tvl1_chunk_level_solve.last_work = work
+    tvl1_chunk_level_solve.last_steps = steps
+    return u1_out, u2_out, iters
+
+
+tvl1_chunk_level_solve.launches = 0
+tvl1_chunk_level_solve.last_work = None
+tvl1_chunk_level_solve.last_steps = None
+
+
 def tvl1_flow_level_cuda_batched(
     i0: torch.Tensor,  # (N, H, W) float32
     i1: torch.Tensor,
@@ -341,41 +411,20 @@ def tvl1_flow_level_cuda_batched(
     u3: Optional[torch.Tensor] = None,
     return_iters: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """Per-level TV-L1 solve of a batch with the chunk kernel: the dual
-    state zero at level entry and kept across the ``warps`` sweeps, each
-    sweep one exact warp and up to ``iterations`` updates. Returns
-    ``(u1, u2, u3)``, and the iterations each image ran as a fourth value
-    with ``return_iters``.
-
-    One-block levels take the exact per-iteration epsilon exit; tile-mode
-    levels test each image after every chunk of ``CHUNK_K`` iterations, on
-    the chunk's last error. ``gamma != 0`` is not solved by the kernel and
-    goes to the plain solver."""
+    """Per-level TV-L1 solve of a batch with the chunk kernel's exit rule,
+    one :func:`tvl1_chunk_level_solve` call. Returns ``(u1, u2, u3)``, and
+    the iterations each image ran as a fourth value with ``return_iters``.
+    ``gamma != 0`` is not solved by the kernel and goes to the plain
+    solver."""
     if params.gamma != 0.0:
         out = level_solve_plain(i0, i1, u1, u2, params, u3=u3)
         return out if return_iters else out[:3]
-    n, h, w = i0.shape
-    use_eps = params.epsilon > 0
-    thresh = params.epsilon * params.epsilon * h * w if use_eps else -1.0
-    with torch.no_grad():
-        if u3 is None:
-            u3 = torch.zeros_like(u1)
-        i1x, i1y = centered_gradient(i1)
-        zeros = torch.zeros_like(u1)
-        state = torch.stack([u1, u2, zeros, zeros, zeros, zeros], dim=1)
-        iters = torch.zeros(n, dtype=torch.int32, device=i0.device)
-        # without iterations a sweep leaves the state as it is
-        for _ in range(params.warps if params.iterations >= 1 else 0):
-            _, i1wx, i1wy, _, rho_c = warp_backward(
-                i0, i1, i1x, i1y, state[:, 0], state[:, 1]
-            )
-            ro = torch.stack([i1wx, i1wy, rho_c], dim=1)
-            state, _ = tvl1_chunk_sweep(
-                ro, state, params.iterations, thresh, params, iters=iters
-            )
+    a, b, iters = tvl1_chunk_level_solve(i0, i1, u1, u2, params)
+    if u3 is None:
+        u3 = torch.zeros_like(u1)
     if return_iters:
-        return state[:, 0], state[:, 1], u3, iters
-    return state[:, 0], state[:, 1], u3
+        return a, b, u3, iters
+    return a, b, u3
 
 
 def tvl1_flow_level_cuda(

@@ -14,10 +14,12 @@ solver).
 The kernel runs a sweep's iterations in chunks on tiles held in shared
 memory (:data:`LEVEL_SCHEDULE` iterations per chunk) and keeps the exact
 per-iteration exit by running a chunk speculatively and, where an image's
-exit fell inside it, once more from the chunk's input up to the exit.
-:func:`tvl1_level_solve_schedule_plain` is that control flow on whole images
-in plain PyTorch: it must equal the plain version bit for bit, flow and
-counts.
+exit fell inside it, once more from the chunk's input up to the exit. The
+same persistent grid (``csrc/tvl1_grid.cuh``) serves the blocked and the
+chunk kernel with an exit every ``E`` iterations (:func:`launch_grid`);
+:func:`tvl1_level_solve_schedule_plain` is the grid's control flow on whole
+images in plain PyTorch, for any exit period: it must equal
+``level_solve_plain(exit_every=E)`` bit for bit, flow and counts.
 
 The library is compiled at the first CUDA call (``ops/_build.py``), so
 importing this module needs neither ``nvcc`` nor a GPU.
@@ -40,9 +42,9 @@ from optflow_tpu_torch.ops.tvl1 import (
 )
 from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
 
-# Iterations per chunk, in order within a sweep; the last entry repeats. A
-# constant of the kernel (csrc/tvl1_level.cu), mirrored here for the plain
-# emulation; the wrapper checks it against the library.
+# Iterations per chunk with the exact exit, in order within a sweep; the last
+# entry repeats. A constant of the grid (csrc/tvl1_grid.cuh), mirrored here
+# for the plain emulation; the wrappers check it against each library.
 LEVEL_SCHEDULE = (2, 2, 4)
 # The kernel's tiles: at most 32 rows (a level is cut into rows of tiles of
 # equal height) by 64 columns, loaded with a halo of 4 pixels on every side.
@@ -55,36 +57,40 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load_library("tvl1_level")
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # pointers and the stream are Python ints: without argtypes ctypes
-        # would pass them as 32-bit ints and cut them
-        lib.tvl1_level_solve.argtypes = (
-            [ptr] * 11 + [i32] * 5 + [f32] * 4 + [ptr]
-        )
-        lib.tvl1_level_solve.restype = i32
-        lib.tvl1_level_solve_per_iteration.argtypes = (
-            [ptr] * 9 + [i32] * 5 + [f32] * 4 + [ptr]
-        )
-        lib.tvl1_level_solve_per_iteration.restype = i32
-        for fn in (lib.tvl1_level_scratch_floats, lib.tvl1_level_err_floats,
-                   lib.tvl1_level_table_ints):
-            fn.argtypes = [i32, i32, i32]
-            fn.restype = ctypes.c_longlong
-        lib.tvl1_level_schedule.argtypes = [i32]
-        lib.tvl1_error_string.argtypes = [i32]
-        lib.tvl1_error_string.restype = ctypes.c_char_p
-        built = (tuple(lib.tvl1_level_schedule(c)
-                       for c in range(lib.tvl1_level_schedule_len())),
-                 lib.tvl1_level_tile_h(), lib.tvl1_level_tile_w(),
-                 lib.tvl1_level_halo())
-        expected = (LEVEL_SCHEDULE, LEVEL_TILE_H, LEVEL_TILE_W, LEVEL_HALO)
-        if built != expected:
-            raise RuntimeError(
-                f"csrc/tvl1_level.cu was built with (schedule, tile, halo) "
-                f"{built}, the wrapper expects {expected}"
-            )
+        bind_grid(lib, "tvl1_level_solve", extra_ints=0)
         _lib = lib
     return _lib
+
+
+def bind_grid(lib: ctypes.CDLL, entry: str, extra_ints: int) -> None:
+    """Declare the argument types of a library that includes
+    ``csrc/tvl1_grid.cuh``: its level entry ``entry`` (eleven pointers, five
+    ints and ``extra_ints`` more, four floats, the stream) and the header's
+    sizing functions; check the header's constants against this module's."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # pointers and the stream are Python ints: without argtypes ctypes would
+    # pass them as 32-bit ints and cut them
+    fn = getattr(lib, entry)
+    fn.argtypes = [ptr] * 11 + [i32] * (5 + extra_ints) + [f32] * 4 + [ptr]
+    fn.restype = i32
+    for fn in (lib.tvl1_level_scratch_floats, lib.tvl1_level_err_floats):
+        fn.argtypes = [i32, i32, i32]
+        fn.restype = ctypes.c_longlong
+    lib.tvl1_level_table_ints.argtypes = [i32] * 4
+    lib.tvl1_level_table_ints.restype = ctypes.c_longlong
+    lib.tvl1_level_schedule.argtypes = [i32]
+    lib.tvl1_error_string.argtypes = [i32]
+    lib.tvl1_error_string.restype = ctypes.c_char_p
+    built = (tuple(lib.tvl1_level_schedule(c)
+                   for c in range(lib.tvl1_level_schedule_len())),
+             lib.tvl1_level_tile_h(), lib.tvl1_level_tile_w(),
+             lib.tvl1_level_halo())
+    expected = (LEVEL_SCHEDULE, LEVEL_TILE_H, LEVEL_TILE_W, LEVEL_HALO)
+    if built != expected:
+        raise RuntimeError(
+            f"csrc/tvl1_grid.cuh was built with (schedule, tile, halo) "
+            f"{built}, the wrapper expects {expected}"
+        )
 
 
 def _check_inputs(i0, i1, u1, u2, params: TVL1Params) -> None:
@@ -126,15 +132,21 @@ def tvl1_level_solve_plain(
     return a, b, iters
 
 
-def level_chunk_schedule(iterations: int) -> List[int]:
-    """Iterations of each chunk of one sweep of ``iterations``: the entries
-    of :data:`LEVEL_SCHEDULE`, the last one repeated and the final chunk cut
-    so that they add up."""
-    chunks, left = [], int(iterations)
-    while left > 0:
-        planned = LEVEL_SCHEDULE[min(len(chunks), len(LEVEL_SCHEDULE) - 1)]
-        chunks.append(min(planned, left))
-        left -= chunks[-1]
+def level_chunk_schedule(iterations: int, exit_every: int = 1) -> List[int]:
+    """Iterations of each chunk of one sweep of ``iterations``. With the
+    exact exit (``exit_every = 1``) the entries of :data:`LEVEL_SCHEDULE`,
+    the last one repeated; with an exit every ``E > 1`` iterations chunks of
+    at most the halo, each cut at the next multiple of ``E``, so that every
+    test falls on a chunk's last iteration. The final chunk is cut so that
+    they add up."""
+    chunks, done = [], 0
+    while done < iterations:
+        if exit_every == 1:
+            m = LEVEL_SCHEDULE[min(len(chunks), len(LEVEL_SCHEDULE) - 1)]
+        else:
+            m = min(LEVEL_HALO, exit_every - done % exit_every)
+        chunks.append(min(m, iterations - done))
+        done += chunks[-1]
     return chunks
 
 
@@ -152,14 +164,15 @@ def level_window_px(h: int) -> int:
     return (tile_h + 2 * LEVEL_HALO) * (LEVEL_TILE_W + 2 * LEVEL_HALO)
 
 
-def level_max_steps(warps: int, iterations: int) -> int:
-    """Grid-wide steps one :func:`tvl1_level_solve` call takes at most: per
-    sweep its chunks and one step that settles the last chunk's exit. The
-    kernel leaves a sweep as soon as no image has anything left to do; the
-    steps it did take are in ``tvl1_level_solve.last_steps[0]``."""
+def level_max_steps(warps: int, iterations: int, exit_every: int = 1) -> int:
+    """Grid-wide steps one level solve takes at most: per sweep its chunks
+    and, with the exact exit, one step that settles the last chunk's exit.
+    The kernel leaves a sweep as soon as no image has anything left to do;
+    the steps it did take are in ``last_steps[0]`` of its wrapper."""
     if iterations <= 0:
         return 0
-    return int(warps) * (len(level_chunk_schedule(iterations)) + 1)
+    chunks = len(level_chunk_schedule(iterations, exit_every))
+    return int(warps) * (chunks + (exit_every == 1))
 
 
 def tvl1_level_solve_schedule_plain(
@@ -168,14 +181,18 @@ def tvl1_level_solve_schedule_plain(
     u1: torch.Tensor,
     u2: torch.Tensor,
     params: TVL1Params,
+    exit_every: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's control flow on whole images, in plain PyTorch: chunks
-    of :func:`level_chunk_schedule` run speculatively with every iteration's
-    error kept; the step after a chunk finds each image's first iteration
-    whose error met the criterion and, where that was not the chunk's last,
-    runs the chunk again from its kept input up to it. Returns
+    """The grid's control flow on whole images, in plain PyTorch: chunks of
+    :func:`level_chunk_schedule`. With the exact exit (``exit_every = 1``)
+    they run speculatively with every iteration's error kept; the step after
+    a chunk finds each image's first iteration whose error met the criterion
+    and, where that was not the chunk's last, runs the chunk again from its
+    kept input up to it. With ``exit_every = E > 1`` the step after a chunk
+    that ends on a multiple of ``E`` (not the sweep's last) tests its last
+    iteration's error, and nothing is replayed. Returns
     ``(u1, u2, iters, computed)``: the first three equal
-    :func:`tvl1_level_solve_plain` bit for bit; ``computed`` is the
+    ``level_solve_plain(exit_every=E)`` bit for bit; ``computed`` is the
     iterations run for each image, those past an exit and the replays
     included."""
     _check_inputs(i0, i1, u1, u2, params)
@@ -214,10 +231,15 @@ def tvl1_level_solve_schedule_plain(
                 return masked(who, st, start), errs
 
             running = torch.ones(n, dtype=torch.bool, device=dev)
-            kept, errs, m_prev = state, [], 0
+            kept, errs, m_prev, done = state, [], 0, 0
             # the schedule's chunks, then one step that only settles
-            for m in level_chunk_schedule(params.iterations) + [0]:
-                if m_prev and use_eps:
+            chunks = level_chunk_schedule(params.iterations, exit_every)
+            for m in chunks + [0]:
+                if m_prev and use_eps and exit_every > 1:
+                    if done % exit_every == 0 and done < params.iterations:
+                        # NaN stops too
+                        running = running & (errs[-1] > thresh)
+                elif m_prev and use_eps:
                     met = torch.stack(errs) <= thresh  # (m_prev, N)
                     met |= torch.stack(errs).isnan()
                     first = torch.where(
@@ -239,31 +261,27 @@ def tvl1_level_solve_schedule_plain(
                 iters += running.int() * m
                 computed += running.int() * m
                 m_prev = m
+                done += m
     return state.u1, state.u2, iters, computed
 
 
-def _launch_level(i0, i1, u1, u2, params: TVL1Params, per_iteration: bool):
-    """Enqueue one level solve on CUDA tensors through the library's entry
-    point, or through the entry point of the replaced one-launch-per-
-    iteration kernel with ``per_iteration`` (only ``chip_smoke.py`` and a
-    test on the card ask for that one, to time and compare the two).
-    Returns ``(u1, u2, iters, work, steps)``, the last two None for the
-    replaced kernel; ``work`` is ``(2, N)`` int32: per image the iterations
-    computed (chunks run past an exit and replays included) and the chunks
-    that ran; ``steps`` is int32: the grid-wide steps the call took, the
-    blocks of its grid, and then for every step the images that ran in it (a
-    0 ends each sweep)."""
+def launch_grid(lib: ctypes.CDLL, entry: str, i0, i1, u1, u2,
+                params: TVL1Params, exit_every: int, *extra: int):
+    """Enqueue one level solve on CUDA tensors through ``entry`` of a library
+    that runs the persistent grid (``csrc/tvl1_grid.cuh``) with an exit
+    every ``exit_every`` iterations; ``extra`` are the entry's own ints after
+    the iteration count. Returns ``(u1, u2, iters, work, steps)``: ``work``
+    is ``(2, N)`` int32, per image the iterations computed (chunks run past
+    an exit and replays included) and the chunks that ran; ``steps`` is
+    int32: the grid-wide steps the call took, the blocks of its grid, and
+    then for every step the images that ran in it (a 0 ends each sweep).
+    Raises on a CUDA error, a refused launch included."""
     _check_inputs(i0, i1, u1, u2, params)
-    lib = _library()
     n, h, w = i0.shape
     dev = i0.device
     use_eps = params.epsilon > 0
     thresh = params.epsilon * params.epsilon * h * w if use_eps else -1.0
-    scalars = (
-        n, h, w, int(params.warps), int(params.iterations),
-        float(params.lambda_ * params.theta), float(params.theta),
-        float(params.tau / params.theta), float(thresh),
-    )
+    warps, iterations = int(params.warps), int(params.iterations)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         u1_out = torch.empty_like(u1)
@@ -275,39 +293,28 @@ def _launch_level(i0, i1, u1, u2, params: TVL1Params, per_iteration: bool):
             lib.tvl1_level_scratch_floats(n, h, w), dtype=torch.float32,
             device=dev,
         )
-        pointers = (i0.data_ptr(), i1.data_ptr(), u1.data_ptr(),
-                    u2.data_ptr(), u1_out.data_ptr(), u2_out.data_ptr())
-        if per_iteration:
-            err = torch.empty(
-                max(1, n * params.iterations), dtype=torch.float32, device=dev
-            )
-            code = lib.tvl1_level_solve_per_iteration(
-                *pointers, counts[0].data_ptr(), scratch.data_ptr(),
-                err.data_ptr(), *scalars, stream,
-            )
-        else:
-            err = torch.empty(
-                lib.tvl1_level_err_floats(n, h, w), dtype=torch.float32,
-                device=dev,
-            )
-            tables = torch.empty(
-                lib.tvl1_level_table_ints(n, scalars[3], scalars[4]),
-                dtype=torch.int32, device=dev,
-            )
-            code = lib.tvl1_level_solve(
-                *pointers, counts[0].data_ptr(), counts[1].data_ptr(),
-                scratch.data_ptr(), err.data_ptr(), tables.data_ptr(),
-                *scalars, stream,
-            )
-            steps = tables[4 * n:]
+        err = torch.empty(
+            lib.tvl1_level_err_floats(n, h, w), dtype=torch.float32,
+            device=dev,
+        )
+        tables = torch.empty(
+            lib.tvl1_level_table_ints(n, warps, iterations, exit_every),
+            dtype=torch.int32, device=dev,
+        )
+        code = getattr(lib, entry)(
+            i0.data_ptr(), i1.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            u1_out.data_ptr(), u2_out.data_ptr(), counts[0].data_ptr(),
+            counts[1].data_ptr(), scratch.data_ptr(), err.data_ptr(),
+            tables.data_ptr(), n, h, w, warps, iterations, *extra,
+            float(params.lambda_ * params.theta), float(params.theta),
+            float(params.tau / params.theta), float(thresh), stream,
+        )
     if code != 0:
         raise RuntimeError(
-            f"tvl1_level_solve: CUDA error {code}: "
+            f"{entry}: CUDA error {code}: "
             f"{lib.tvl1_error_string(code).decode()}"
         )
-    if per_iteration:
-        return u1_out, u2_out, counts[0], None, None
-    return u1_out, u2_out, counts[0], counts[1:], steps
+    return u1_out, u2_out, counts[0], counts[1:], tables[4 * n:]
 
 
 def tvl1_level_solve(
@@ -334,8 +341,8 @@ def tvl1_level_solve(
     ending each sweep) or raise; CPU tensors take the plain version."""
     if not i0.is_cuda:
         return tvl1_level_solve_plain(i0, i1, u1, u2, params)
-    u1_out, u2_out, iters, work, steps = _launch_level(
-        i0, i1, u1, u2, params, per_iteration=False
+    u1_out, u2_out, iters, work, steps = launch_grid(
+        _library(), "tvl1_level_solve", i0, i1, u1, u2, params, 1
     )
     tvl1_level_solve.launches += 1
     tvl1_level_solve.last_work = work

@@ -76,6 +76,8 @@ def test_kernel_sources_are_cuda_sources_of_this_package():
     assert stems == ["smem_cap", "tvl1_ablate", "tvl1_blocked", "tvl1_chunk",
                      "tvl1_level"]
     smoke = (ROOT / "chip_smoke.py").read_text()
+    # the persistent level grid's header brings the shared device code
+    assert '#include "tvl1_common.cuh"' in (csrc / "tvl1_grid.cuh").read_text()
     for stem, body in (("tvl1_blocked", "_make_blocked_kernel"),
                        ("tvl1_chunk", "_make_kernel"),
                        ("tvl1_level", "_make_fused_kernel"),
@@ -83,7 +85,8 @@ def test_kernel_sources_are_cuda_sources_of_this_package():
                        ("smem_cap", "try_mb")):
         text = (csrc / f"{stem}.cu").read_text()
         assert body in text
-        assert ("tvl1_common.cuh" in text) == stem.startswith("tvl1_")
+        shared = "tvl1_common.cuh" in text or "tvl1_grid.cuh" in text
+        assert shared == stem.startswith("tvl1_")
         assert f"optflow_tpu_torch/csrc/{stem}.cu" in smoke
         assert "torch/extension.h" not in text  # plain C interface, ctypes
 

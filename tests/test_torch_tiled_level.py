@@ -1,9 +1,11 @@
-"""The control flow of the port's level kernel and of the chunk kernel's
-sweep entry, on the CPU: the chunk schedule, the search for an image's exit
-inside a chunk, the replay from the chunk's input and the counts are Python a
-test can reach. The plain emulation of the level kernel's control flow must
-equal the plain level solve (which the JAX-against-port tests of
-``test_torch_tvl1.py`` hold to the jnp solver) bit for bit, flow and counts."""
+"""The control flow of the port's persistent level grid (the level kernel,
+and the blocked and chunk kernels on it with an exit every k and every 8
+iterations) and of the chunk kernel's sweep entry, on the CPU: the chunk
+schedule, the search for an image's exit inside a chunk, the replay from the
+chunk's input and the counts are Python a test can reach. The plain
+emulation of the grid's control flow must equal the plain level solve (which
+the JAX-against-port tests of ``test_torch_tvl1.py`` hold to the jnp solver)
+bit for bit, flow and counts, for every exit period."""
 
 import dataclasses
 
@@ -16,6 +18,7 @@ from optflow_tpu.core.config import TVL1Params as JaxParams
 from optflow_tpu.ops import tvl1_pallas as jtp
 from optflow_tpu_torch import convert
 from optflow_tpu_torch.ops import tvl1 as ttv
+from optflow_tpu_torch.ops import tvl1_blocked_cuda as tbc
 from optflow_tpu_torch.ops import tvl1_chunk_cuda as tcc
 from optflow_tpu_torch.ops import tvl1_cuda as tlc
 from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
@@ -159,6 +162,140 @@ def test_level_chunk_schedule_adds_up(iterations):
     assert tlc.level_window_px(256) == 40 * 72
 
 
+@pytest.mark.parametrize("epsilon", [0.01, 0.0])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 40, 56)])
+@pytest.mark.parametrize("exit_every", [1, 3, 8, 16])
+def test_periodic_exit_emulation_equals_plain_level_solve(rng, exit_every,
+                                                          shape, epsilon):
+    """The grid with an exit every E iterations (E = 1: the exact exit, the
+    level kernel; 16: the blocked kernel's rule; 8: the chunk kernel's): the
+    same flow and counts as level_solve_plain(exit_every=E), not one bit
+    apart. With E > 1 every test falls on a chunk's end: nothing is
+    speculated or replayed, the iterations computed are those counted."""
+    _, tp = _params(nscales=1, warps=3, iterations=100, epsilon=epsilon)
+    args = _level_inputs(rng, *shape)
+    p1, p2, _, pit = ttv.level_solve_plain(*args, tp, exit_every=exit_every)
+    e1, e2, eit, computed = tlc.tvl1_level_solve_schedule_plain(
+        *args, tp, exit_every=exit_every)
+    assert torch.equal(e1, p1) and torch.equal(e2, p2)
+    assert torch.equal(eit, pit)
+    if exit_every > 1:
+        assert torch.equal(computed, eit)
+    if epsilon == 0.0:
+        assert eit.tolist() == [300] * shape[0]
+    else:
+        assert all(0 < c < 300 for c in eit.tolist())  # every exit was taken
+
+
+@pytest.mark.parametrize("iterations", [1, 7, 32, 300])
+@pytest.mark.parametrize("exit_every", [2, 3, 5, 8, 16])
+def test_periodic_schedule_ends_a_chunk_at_every_test(exit_every, iterations):
+    chunks = tlc.level_chunk_schedule(iterations, exit_every)
+    assert sum(chunks) == iterations
+    assert all(1 <= m <= tlc.LEVEL_HALO for m in chunks)
+    ends = set(np.cumsum(chunks).tolist())
+    assert set(range(exit_every, iterations, exit_every)) <= ends
+    # no settling step: a sweep is its chunks
+    assert tlc.level_max_steps(5, iterations, exit_every) == 5 * len(chunks)
+    if exit_every % tlc.LEVEL_HALO == 0:
+        assert chunks[:-1] == [tlc.LEVEL_HALO] * (len(chunks) - 1)
+
+
+def _old_chunk_level_loop(i0, i1, u1, u2, tp, sweep):
+    """The chunk kernel's level solve before the level entry: the gradient,
+    the state stack and every sweep's warp in PyTorch, one sweep call a
+    sweep. ``sweep`` is tvl1_chunk_sweep or its plain version."""
+    n, h, w = i0.shape
+    thresh = tp.epsilon ** 2 * h * w if tp.epsilon > 0 else -1.0
+    i1x, i1y = centered_gradient(i1)
+    z = torch.zeros_like(u1)
+    state = torch.stack([u1, u2, z, z, z, z], dim=1)
+    iters = torch.zeros(n, dtype=torch.int32, device=i0.device)
+    for _ in range(tp.warps):
+        _, wx, wy, _, rho = warp_backward(i0, i1, i1x, i1y, state[:, 0],
+                                          state[:, 1])
+        ro = torch.stack([wx, wy, rho], dim=1)
+        state, _ = sweep(ro, state, tp.iterations, thresh, tp, iters=iters)
+    return state[:, 0], state[:, 1], iters
+
+
+@pytest.mark.parametrize(
+    "shape,epsilon", [((3, 70, 150), 0.02), ((3, 70, 150), 0.0),
+                      ((2, 34, 60), 0.02)],
+    ids=["tiles-exit", "tiles-no-exit", "one-block-exit"],
+)
+def test_chunk_level_entry_equals_the_old_sweep_loop(rng, shape, epsilon):
+    """The level entry's CPU path (the plain level solve with an exit every
+    8 iterations in tiles, every iteration in one block) against the loop
+    it replaces (PyTorch warp + tvl1_chunk_sweep_plain a sweep), bit for bit:
+    flow and counts."""
+    _, tp = _params(nscales=1, warps=3, iterations=60, epsilon=epsilon)
+    args = _level_inputs(rng, *shape)
+    g1, g2, git = tcc.tvl1_chunk_level_solve(*args, tp)
+    o1, o2, oit = _old_chunk_level_loop(*args, tp,
+                                          tcc.tvl1_chunk_sweep_plain)
+    assert torch.equal(g1, o1) and torch.equal(g2, o2)
+    assert torch.equal(git, oit)
+    one_block = tcc.chunk_geometry(*shape[1:]).one_block
+    assert tcc.level_exit_every(*shape[1:]) == (1 if one_block else 8)
+    if epsilon == 0.0:
+        assert git.tolist() == [180] * shape[0]
+    else:
+        assert all(0 < c < 180 for c in git.tolist())
+    *_, via_api = tcc.tvl1_flow_level_cuda_batched(*args, tp,
+                                                   return_iters=True)
+    assert torch.equal(via_api, git)
+
+
+@pytest.mark.parametrize(
+    "fault,exc",
+    [("dtype", TypeError), ("contiguous", ValueError), ("shape", ValueError),
+     ("gamma", ValueError), ("k-zero", ValueError), ("k-past-16", ValueError)],
+)
+def test_grid_wrappers_reject_what_the_kernels_do_not_take(fault, exc):
+    """The level entries of the blocked and chunk kernels, and their plain
+    versions, raise on what the grid does not take; ``gamma != 0`` is no
+    kernel's (the level API routes it to the plain solver)."""
+    kw = {"nscales": 1, "warps": 1, "iterations": 4}
+    if fault == "gamma":
+        kw["gamma"] = 0.5
+    _, tp = _params(**kw)
+    i0 = torch.zeros(2, 40, 70)
+    u1 = torch.zeros(2, 40, 70)
+    k = tbc.BLOCKED_K
+    if fault == "dtype":
+        i0 = i0.double()
+    elif fault == "contiguous":
+        u1 = torch.zeros(2, 70, 40).transpose(1, 2)
+    elif fault == "shape":
+        u1 = torch.zeros(2, 40, 71)
+    elif fault == "k-zero":
+        k = 0
+    elif fault == "k-past-16":
+        k = 17
+    args = (i0, torch.zeros(2, 40, 70), u1, torch.zeros(2, 40, 70), tp)
+    with pytest.raises(exc):
+        tbc.tvl1_blocked_level_solve(*args, k=k)
+    with pytest.raises(exc):
+        tbc.tvl1_blocked_level_solve_plain(*args, k=k)
+    if fault.startswith("k-"):
+        return
+    with pytest.raises(exc):
+        tcc.tvl1_chunk_level_solve(*args)
+    with pytest.raises(exc):
+        tcc.tvl1_chunk_level_solve_plain(*args)
+
+
+def test_chunk_level_entry_on_cpu_tensors_counts_no_launch(rng):
+    _, tp = _params(nscales=1, warps=1, iterations=8)
+    args = _level_inputs(rng, 1, 40, 70)
+    before = tcc.tvl1_chunk_level_solve.launches
+    got = tcc.tvl1_chunk_level_solve(*args, tp)
+    want = tcc.tvl1_chunk_level_solve_plain(*args, tp)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tcc.tvl1_chunk_level_solve.launches == before
+
+
 def test_no_iterations_leave_the_flow(rng):
     _, tp = _params(nscales=1, warps=2, iterations=0)
     i0, i1, _, _ = _level_inputs(rng, 2, 16, 24)
@@ -250,11 +387,11 @@ def test_chunk_sweep_one_block_is_one_chunk_call(rng):
 
 
 def test_level_solve_through_the_sweep_matches_pallas_level_path(rng):
-    """tvl1_flow_level_cuda_batched, which now calls the sweep entry once a
-    sweep, against tvl1_flow_level_pallas_batched(interpret=True,
-    shift_warp=False) at a size the port runs in tiles: within 1e-4 px at a
-    fixed count (the JAX package runs this size in one block, whose
-    per-iteration exit the tile mode does not have)."""
+    """tvl1_flow_level_cuda_batched, which calls the chunk kernel's level
+    entry once a level, against tvl1_flow_level_pallas_batched(
+    interpret=True, shift_warp=False) at a size the port runs in tiles:
+    within 1e-4 px at a fixed count (the JAX package runs this size in one
+    block, whose per-iteration exit the tile mode does not have)."""
     n, h, w = 2, 66, 140
     i0, i1, _, _ = _level_inputs(rng, n, h, w)
     jp, tp = _params(nscales=1, warps=2, iterations=20, epsilon=0.0)
@@ -335,17 +472,17 @@ def test_enqueued_sums_the_tallies_of_the_loaded_libraries(monkeypatch):
 
 
 @pytest.mark.gpu
-def test_level_kernel_equals_the_kernel_it_replaces_on_the_card(rng):
-    """The tiled level kernel against the per-iteration kernel it replaces
-    (the library's second entry point): the same bits at epsilon 0; with the
-    exit, the same bits on a rerun, and the counts and iterations computed
-    of the plain emulation."""
+def test_level_kernel_equals_the_blocked_kernel_on_the_card(rng):
+    """The level kernel (the grid with the exact exit) against the blocked
+    kernel (the same grid, an exit every 16): the same bits at epsilon 0;
+    with the exit, the same bits on a rerun, and the counts and iterations
+    computed of the plain emulation."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
     args = tuple(a.cuda() for a in _level_inputs(rng, 3, 37, 53))
     _, fixed = _params(nscales=1, warps=2, iterations=25, epsilon=0.0)
     k1, k2, kit = tlc.tvl1_level_solve(*args, fixed)
-    o1, o2, oit, _, _ = tlc._launch_level(*args, fixed, per_iteration=True)
+    o1, o2, oit = tbc.tvl1_blocked_level_solve(*args, fixed)
     assert torch.equal(k1, o1) and torch.equal(k2, o2)
     assert torch.equal(kit, oit)
     _, full = _params(nscales=1, warps=3, iterations=300, epsilon=0.01)
@@ -362,6 +499,59 @@ def test_level_kernel_equals_the_kernel_it_replaces_on_the_card(rng):
     assert 0 < steps <= tlc.level_max_steps(3, 300)
     assert 0 < grid <= 3 * tlc.level_tiles(37, 53)
     assert sum(1 for x in live if x) == steps and max(live) == 3
+
+
+@pytest.mark.gpu
+def test_blocked_kernel_equals_the_kernel_it_replaces_on_the_card(rng):
+    """The blocked kernel on the grid against the per-chunk design it
+    replaces (the library's second entry point): the same bits at epsilon 0;
+    with the exit, counts equal or one chunk apart (the tile sums are added
+    in another order), iterations computed equal to those counted, and a
+    rerun bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    args = tuple(a.cuda() for a in _level_inputs(rng, 3, 70, 150))
+    _, fixed = _params(nscales=1, warps=2, iterations=32, epsilon=0.0)
+    before = tbc.tvl1_blocked_level_solve.launches
+    k1, k2, kit = tbc.tvl1_blocked_level_solve(*args, fixed)
+    o1, o2, oit = tbc.tvl1_blocked_level_solve_per_chunk(*args, fixed)
+    assert tbc.tvl1_blocked_level_solve.launches == before + 1
+    assert torch.equal(k1, o1) and torch.equal(k2, o2)
+    assert torch.equal(kit, oit)
+    _, full = _params(nscales=1, warps=3, iterations=300, epsilon=0.01)
+    a1, a2, ait = tbc.tvl1_blocked_level_solve(*args, full)
+    work = tbc.tvl1_blocked_level_solve.last_work
+    b1, b2, bit = tbc.tvl1_blocked_level_solve(*args, full)
+    _, _, oit = tbc.tvl1_blocked_level_solve_per_chunk(*args, full)
+    _, _, pit = tbc.tvl1_blocked_level_solve_plain(*args, full)
+    assert torch.equal(a1, b1) and torch.equal(a2, b2)
+    assert torch.equal(ait, bit) and torch.equal(work[0], ait)
+    for other in (oit, pit):
+        assert bool(((ait - other).abs() <= tbc.BLOCKED_K).all())
+
+
+@pytest.mark.gpu
+def test_chunk_level_entry_matches_the_old_sweep_loop_on_the_card(rng):
+    """The chunk kernel's level entry against the sweep loop it replaces
+    (PyTorch warp + tvl1_chunk_sweep a sweep) and its plain version: one
+    library call; counts equal or one test apart (the tile sums are added in
+    another order), the flow within 1e-4 px where they agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    _, tp = _params(nscales=1, warps=3, iterations=100, epsilon=0.02)
+    for shape in ((3, 70, 150), (2, 34, 60)):
+        args = tuple(a.cuda() for a in _level_inputs(rng, *shape))
+        step = tcc.level_exit_every(*shape[1:])
+        before = tcc.tvl1_chunk_level_solve.launches
+        k1, _, kit = tcc.tvl1_chunk_level_solve(*args, tp)
+        assert tcc.tvl1_chunk_level_solve.launches == before + 1
+        for o1, _, oit in (
+                _old_chunk_level_loop(*args, tp, tcc.tvl1_chunk_sweep),
+                tcc.tvl1_chunk_level_solve_plain(*args, tp)):
+            assert bool(((kit - oit).abs() <= step).all())
+            same = kit == oit
+            assert bool(same.any())
+            assert float((k1[same] - o1[same]).abs().max()) <= 1e-4
 
 
 @pytest.mark.gpu
