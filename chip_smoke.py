@@ -16,7 +16,12 @@ PyTorch version on the card:
 - the two measurement tools, ``tools.kernel_ablate`` and ``tools.smem_cap``:
   the ablation kernel and the shared-memory capacity probe;
 - style-1 jobs with feature pre-alignment (plain PyTorch on the card; the
-  solve under it is the level kernel's).
+  solve under it is the level kernel's);
+- style 2, the average-flow stack aligner, through ``average_flow_job`` and
+  the CLI: the level kernel at every pyramid level of every section;
+- the global stack alignment of a production-sized match graph: the
+  z-block and CG solves (plain PyTorch linear algebra on the card) and
+  ``optflow align``.
 
 Needs no file from outside the repository and no network: frames are
 synthesised from a seed.
@@ -65,6 +70,18 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            job of 32 misaligned strip pairs with features on through
            run_job_batched, 16 pairs (two with the `default` ROI) through
            the CLI, and identical / flat frames
+  style2   style 2 on 13 sections of 1024x2048 at scale 0.5, each displaced
+           by a known jitter: 7 aligned sections, the flow toward the
+           neighbourhood average gated against its truth, one section's
+           solve against the plain solver on the card, 10 launches of the
+           level kernel a section and none of the blocked kernel; then a
+           small style-2 job from PNGs through the CLI
+  align    9,604 sections at z-distance <= 3, 1.44 M matches: the z-block
+           solve (translation and affine) against an exact sparse
+           least-squares solve of the same equations and, for the
+           translation model, the matched pairs against the truth; the CG
+           solves on the first 256 sections against the z-block solve; and
+           `optflow align` on a JSONL store of the affine stack
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 every kernel's launches on the main path, its error against the plain
@@ -91,7 +108,8 @@ import time
 import numpy as np
 
 ALL_PHASES = ("device", "build", "kernels", "ablate", "smem_cap", "solve",
-              "job", "cli", "section", "level_api", "features")
+              "job", "cli", "section", "level_api", "features", "style2",
+              "align")
 KERNEL_STEMS = ("tvl1_level", "tvl1_blocked", "tvl1_chunk", "tvl1_ablate",
                 "smem_cap")
 
@@ -156,7 +174,7 @@ KERNELS = {
     },
     "smem_fill_mean": {
         "source": "optflow_tpu_torch/csrc/smem_cap.cu",
-        "replaces": "tools/probes/r4_vmem_cap.py:20",
+        "replaces": "tools/probes/r4_vmem_cap.py:17",
     },
 }
 # One multiprocessor's shared memory moves 32 banks x 4 B a clock; the clock
@@ -176,6 +194,26 @@ SECTION_H, SECTION_W = int(SRC_H * SCALE), int(SRC_W * SCALE)  # 512 x 1024
 SECTION_SOLVES = ((4, SECTION_H, SECTION_W), (1, 1024, 1024))
 DX_STEP, DY_STEP = 2.2, -1.2  # per z step, full-res px
 MAX_DZ = 3
+# style2 phase: 13 sections of the job phase's geometry give 7 outputs (each
+# needs 3 neighbours a side); each section displaced by a known jitter
+STYLE2_SECTIONS = 13
+STYLE2_JITTER_PX = 1.5
+STYLE2_BORDER = 16  # the job's zero pad around each output, px
+# align phase: the Sec26 VNC production graph (SURVEY.md:329), z 1..9604 at
+# z-distance <= 3; a pair's matches are a job's random_points output, 25
+# points in each of its two strip ROIs
+ALIGN_SECTIONS = 9604
+ALIGN_MAX_DZ = 3
+ALIGN_NPOINTS = 25
+ALIGN_NOISE_PX = 0.1
+ALIGN_BLOCK = 256  # block_sections of the z-block solve (the CLI default)
+ALIGN_CG_SECTIONS = 256
+# The JAX package's affine CG (solve_affine_alignment, its default 400
+# iterations) on the first ALIGN_CG_SECTIONS sections of the affine stack
+# stops this far (relative objective excess) above the exact optimum: it
+# does not converge there. The port's CG is held to it; the JAX package's
+# reading on the CPU is recomputed by tests/test_torch_align.py.
+AFFINE_CG_JAX_EXCESS = 29.556948
 
 
 def emit(obj) -> None:
@@ -2408,6 +2446,574 @@ def phase_features(results, tmp):
              "the identity")
 
 
+# --------------------------------------------------------------------------
+# style 2: the average-flow stack aligner
+# --------------------------------------------------------------------------
+
+
+def jittered_stack(n_frames, seed=21, src_h=SRC_H, src_w=SRC_W):
+    """uint8 sections cut from one band-limited texture (that of
+    ``synth_stack``), each displaced by its own sub-pixel jitter, uniform
+    in +-STYLE2_JITTER_PX on each axis, plus per-section noise. Returns
+    (sections, offsets (n, 2), texture): section z at pixel (x, y) shows
+    ``texture(y + pad, x + pad)`` at (x, y) + offsets[z], pad = 8."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    pad = 8
+    big_h, big_w = src_h + 2 * pad, src_w + 2 * pad
+    base = ndi.gaussian_filter(rng.standard_normal((big_h, big_w)), 4.0)
+    lowf = ndi.gaussian_filter(rng.standard_normal((big_h, big_w)), 36.0)
+    tex = base * 2.0 + lowf * 4.0
+    tex = 20.0 + 215.0 * (tex - tex.min()) / (np.ptp(tex) + 1e-9)
+    offsets = rng.uniform(-STYLE2_JITTER_PX, STYLE2_JITTER_PX, (n_frames, 2))
+    ys, xs = np.arange(src_h) + pad, np.arange(src_w) + pad
+    frames = []
+    for ox, oy in offsets:
+        gy, gx = np.meshgrid(ys + oy, xs + ox, indexing="ij")
+        sec = ndi.map_coordinates(tex, [gy, gx], order=3, mode="nearest")
+        sec = sec + rng.normal(0.0, 1.5, sec.shape)
+        frames.append(np.clip(np.round(sec), 0, 255).astype(np.uint8))
+    return frames, offsets, tex
+
+
+def registration_error(image, tex, origin, step=4, sweeps=3):
+    """The shift s (x, y) at which ``image`` best matches the texture placed
+    at ``origin``: image(x, y) ~ tex(y + origin_y + s_y, x + origin_x + s_x),
+    by Gauss-Newton on a grid of every ``step``-th pixel; and the rms of the
+    gray levels left over."""
+    import scipy.ndimage as ndi
+
+    gy, gx = np.mgrid[0:image.shape[0]:step, 0:image.shape[1]:step]
+    vals = image[gy, gx].ravel().astype(np.float64)
+    d_y, d_x = np.gradient(tex)
+    s = np.zeros(2)
+    for _ in range(sweeps):
+        at = [(gy + origin[1] + s[1]).ravel(), (gx + origin[0] + s[0]).ravel()]
+        r = vals - ndi.map_coordinates(tex, at, order=3, mode="nearest")
+        jac = np.stack([ndi.map_coordinates(d_x, at, order=1),
+                        ndi.map_coordinates(d_y, at, order=1)], axis=1)
+        s += np.linalg.lstsq(jac, r, rcond=None)[0]
+    at = [(gy + origin[1] + s[1]).ravel(), (gx + origin[0] + s[0]).ravel()]
+    rest = vals - ndi.map_coordinates(tex, at, order=3, mode="nearest")
+    return s, float(np.sqrt(np.mean(rest**2)))
+
+
+def phase_style2(results, tmp):
+    """Style 2 through ``average_flow_job``: 13 sections of the bench's
+    1024x2048 frames at scale 0.5 (512x1024 solves, reference solver
+    defaults) and a zero border of STYLE2_BORDER px give 7 aligned sections;
+    every section's pyramid is solved by the level kernel at every level
+    with the exact exit. Gates: the flows the job solved toward each
+    neighbourhood average against their known truth; the TIFFs it wrote
+    against the texture at the neighbourhood's mean jitter; one of its
+    solves against the plain solver on the card; and the kernel counts: 10
+    launches of the level kernel a section, none of the blocked kernel.
+    Then a small style-2 job through the CLI."""
+    import torch
+
+    from optflow_tpu_torch.align import average_flow
+    from optflow_tpu_torch.align.average_flow import WEIGHTS, average_flow_job
+    from optflow_tpu_torch.core import imgio
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops import tvl1 as tv
+    from optflow_tpu_torch.ops.pyramid import resize_bilinear
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_exact_cuda
+    from optflow_tpu_torch.utils.metrics import StageTimer
+
+    decoder = imgio.decoder_name()
+    if decoder is None:
+        emit({"phase": "style2", "skipped": "no image decoder installed"})
+        return
+    n = STYLE2_SECTIONS
+    t0 = time.perf_counter()
+    sections, offsets, tex = jittered_stack(n)
+    synth_s = time.perf_counter() - t0
+    paths = write_pngs(sections, os.path.join(tmp, "style2"), decoder)
+    out_dir = os.path.join(tmp, "style2_out")
+    job = {"style": 2, "file_list": paths, "output_dir": out_dir,
+           "scale": SCALE, "border": STYLE2_BORDER}
+    # TV-L1 keys absent: the reference defaults
+    params = TVL1Params.from_config({}, job)
+    timer = StageTimer()
+    # the job's own solves, in order: (section, average, flow)
+    solved = []
+    solve_flow = average_flow._solve_flow
+
+    def recording_solve(frame, blur, scale, prm):
+        flow = solve_flow(frame, blur, scale, prm)
+        solved.append((frame, blur, flow))
+        return flow
+
+    # a main path: counts are set to 0 just before and read just after
+    average_flow._solve_flow = recording_solve
+    try:
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as progress:
+            written = average_flow_job(job, device="cuda", timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launch_counts()
+    finally:
+        average_flow._solve_flow = solve_flow
+    timing = timer.summary(len(written))
+    n_out = n - 6
+    levels = len(tv.pyramid_shapes(SECTION_H, SECTION_W, params.nscales,
+                                   params.scale_step))
+    if len(solved) != n_out:
+        fail(f"style 2 solved {len(solved)} sections, expected {n_out}")
+
+    # the flow the job solved for output section i, toward its neighbourhood
+    # average, against the truth: section i shows the texture at x + o_i,
+    # the average at x + mean_i, mean_i = sum_k w_k o_(i+k)
+    m = 16  # full-res px of border left out of the EPE
+    means, epes = {}, []
+    for i, (_, _, flow) in zip(range(3, n - 3), solved):
+        neighbours = list(range(i - 3, i)) + list(range(i + 1, i + 4))
+        means[i] = sum(w * offsets[j] for w, j in zip(WEIGHTS, neighbours))
+        truth = offsets[i] - means[i]
+        err = torch.hypot(flow[0] - truth[0], flow[1] - truth[1])
+        epes.append(float(err[m:-m, m:-m].mean()))
+    # each written section, resampled onto the average's frame and padded,
+    # against the texture at the average's jitter: its interior at
+    # (x, y) should show tex(y - border + pad + mean_y, x - border + pad +
+    # mean_x)
+    outputs = [imgio.read_float_tiff(p) for p in written]
+    inner = STYLE2_BORDER + m
+    shifts, rests = [], []
+    for i, out in zip(range(3, n - 3), outputs):
+        if out.shape != (SRC_H + 2 * STYLE2_BORDER, SRC_W + 2 * STYLE2_BORDER) \
+                or not np.isfinite(out).all():
+            fail(f"style 2 wrote {written[i - 3]} of shape {out.shape}, "
+                 "expected a finite 1024x2048 section and its border")
+        origin = means[i] + 8 - STYLE2_BORDER + inner
+        shift, rest = registration_error(out[inner:-inner, inner:-inner], tex,
+                                         origin)
+        shifts.append(float(np.hypot(*shift)))
+        rests.append(rest)
+
+    # one of the job's solves through the level kernel at every level
+    # against the plain solver on the same card
+    frame, blur, _ = solved[n_out // 2]
+    sh = (SECTION_H, SECTION_W)
+    f_s = resize_bilinear(frame, sh)[None]
+    b_s = resize_bilinear(blur, sh)[None]
+    t_exact = time_cuda(lambda: tvl1_flow_exact_cuda(f_s, b_s, params), 1)
+    exact = tvl1_flow_exact_cuda(f_s, b_s, params)
+    exact_iters = [int(it.sum()) for _, it in tv.get_last_iteration_stats()]
+    t0 = time.perf_counter()
+    plain = tv.solve_pyramid(f_s, b_s, params, None, tv.level_solve_plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_iters = [int(it.sum()) for _, it in tv.get_last_iteration_stats()]
+    plain_diff = max_abs_diff(exact, plain)
+
+    emit({"phase": "style2", "sections": n, "outputs": len(written),
+          "shape": [SRC_H, SRC_W], "solve_shape": [SECTION_H, SECTION_W],
+          "scale": SCALE, "border": STYLE2_BORDER,
+          "epe_px": epes, "epe_mean_px": float(np.mean(epes)),
+          "gate_px": 0.5, "output_shift_px": shifts,
+          "output_rest_rms_gray": rests,
+          "wall_s": wall, "ms_per_section": wall / n_out * 1e3,
+          "solve_device_ms_per_section":
+          timing.get("solve_device_s", 0.0) / n_out * 1e3,
+          "remap_device_ms_per_section":
+          timing.get("remap_device_s", 0.0) / n_out * 1e3,
+          "write_ms_per_section": timing.get("write_s", 0.0) / n_out * 1e3,
+          "timing": timing, "launches": counts,
+          "launches_expected": {"tvl1_level_solve": levels * n_out,
+                                "tvl1_blocked_level_solve": 0},
+          "exact_solve_ms": t_exact, "plain_solve_ms": plain_ms,
+          "exact_vs_plain_max_abs_px": plain_diff, "tolerance": 1e-2,
+          "iters_per_level_exact": exact_iters,
+          "iters_per_level_plain": plain_iters,
+          "progress_lines": len(progress.getvalue().splitlines()),
+          "synth_s": round(synth_s, 2)})
+    if len(written) != n_out:
+        fail(f"style 2 wrote {len(written)} sections, expected {n_out}")
+    if counts["tvl1_level_solve"] != levels * n_out \
+            or counts["tvl1_blocked_level_solve"] != 0:
+        fail(f"style 2 launched {counts}, expected the level kernel "
+             f"{levels} times a section and the blocked kernel never")
+    if not np.mean(epes) <= 0.5:
+        fail(f"style 2: mean interior EPE {np.mean(epes)} > 0.5 px")
+    if not max(shifts) <= 0.5:
+        fail(f"style 2: a written section lies {max(shifts)} px off the "
+             "average's frame, gate 0.5 px")
+    if not plain_diff <= 1e-2:
+        fail(f"style 2: the exact-exit solve is {plain_diff} px from the "
+             "plain solver's, tolerance 0.01 px")
+    results.setdefault("launches", {})["tvl1_level_solve"] = (
+        results.get("launches", {}).get("tvl1_level_solve", 0)
+        + counts["tvl1_level_solve"])
+
+    # a small style-2 job from PNGs through the CLI: 7 sections of 256x512,
+    # one output
+    small = [s[:256, :512] for s in sections[:7]]
+    paths = write_pngs(small, os.path.join(tmp, "style2_cli"), decoder)
+    cli_out = os.path.join(tmp, "style2_cli_out")
+    job_path = os.path.join(tmp, "style2.json")
+    with open(job_path, "w") as f:
+        json.dump({"style": 2, "file_list": paths, "output_dir": cli_out,
+                   "scale": SCALE}, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "optflow_tpu_torch.cli.main", job_path],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+        fail(f"the style-2 CLI exited with code {proc.returncode}")
+    last_line = proc.stdout.strip().splitlines()[-1]
+    found = {k: re.search(rf"'{k}': (\d+)", last_line)
+             for k in ("tvl1_level_solve", "tvl1_blocked_level_solve")}
+    cli_counts = {k: int(v.group(1)) if v else None for k, v in found.items()}
+    out = os.path.join(cli_out, "3.tiff")
+    cli_levels = len(tv.pyramid_shapes(
+        *(int(round(d * SCALE)) for d in small[0].shape), params.nscales,
+        params.scale_step))
+    emit({"phase": "style2", "cli": True, "sections": 7,
+          "shape": list(small[0].shape),
+          "wall_s": cli_wall, "launches": cli_counts, "last_line": last_line})
+    if cli_counts != {"tvl1_level_solve": cli_levels,
+                      "tvl1_blocked_level_solve": 0}:
+        fail(f"the style-2 CLI reported launches {cli_counts}, expected "
+             f"{cli_levels} of the level kernel and none of the blocked one")
+    if not os.path.exists(out) or not np.isfinite(
+            imgio.read_float_tiff(out)).all():
+        fail(f"the style-2 CLI did not write a finite {out}")
+
+
+# --------------------------------------------------------------------------
+# align: the global stack alignment
+# --------------------------------------------------------------------------
+
+
+def alignment_graph(n_sections, seed, affine):
+    """Render-schema match records of a production-shaped stack: sections z
+    1..n at z-distance <= ALIGN_MAX_DZ, each pair carrying ALIGN_NPOINTS
+    points in each of its two strip ROIs (the top and bottom halves of a
+    1024x2048 section, in full-res px), and the truth: per-section 2x3
+    affines mapping section to global coordinates, translations a random
+    walk of steps uniform in +-2 px, with ``affine`` also linear parts
+    within 1e-3 of the identity; section 1 is the identity. A match is a
+    point p of section a and q = A_b^-1(A_a(p)) + noise of
+    ALIGN_NOISE_PX (standard deviation, each axis)."""
+    rng = np.random.default_rng(seed)
+    steps = rng.uniform(-2.0, 2.0, (n_sections, 2))
+    steps[0] = 0.0
+    mats = np.zeros((n_sections, 2, 3))
+    mats[:, 0, 0] = mats[:, 1, 1] = 1.0
+    mats[:, :, 2] = np.cumsum(steps, axis=0)
+    if affine:
+        mats[1:, :, :2] += rng.uniform(-1e-3, 1e-3, (n_sections - 1, 2, 2))
+    a = np.concatenate([np.arange(n_sections - dz)
+                        for dz in range(1, ALIGN_MAX_DZ + 1)])
+    b = np.concatenate([np.arange(dz, n_sections)
+                        for dz in range(1, ALIGN_MAX_DZ + 1)])
+    order = np.lexsort((b, a))
+    a, b = a[order], b[order]
+    k = ALIGN_NPOINTS
+    p = np.empty((len(a), 2 * k, 2))
+    p[..., 0] = rng.uniform(0, SRC_W, (len(a), 2 * k))
+    p[:, :k, 1] = rng.uniform(0, SRC_H / 2, (len(a), k))
+    p[:, k:, 1] = rng.uniform(SRC_H / 2, SRC_H, (len(a), k))
+    A, B = mats[a], mats[b]
+    g = np.einsum("nij,nmj->nmi", A[:, :, :2], p) + A[:, None, :, 2]
+    q = np.einsum("nij,nmj->nmi", np.linalg.inv(B[:, :, :2]),
+                  g - B[:, None, :, 2])
+    q += rng.normal(0.0, ALIGN_NOISE_PX, q.shape)
+    w = [1.0] * (2 * k)
+    recs = [{"pGroupId": f"{i + 1}.0", "qGroupId": f"{j + 1}.0",
+             "pId": f"tile_{i + 1}", "qId": f"tile_{j + 1}",
+             "matches": {"p": pp.T.tolist(), "q": qq.T.tolist(), "w": w}}
+            for i, j, pp, qq in zip(a.tolist(), b.tolist(), p, q)]
+    return recs, mats, (a, b)
+
+
+SECTION_CORNERS = np.array([[0.0, 0.0, 1.0], [SRC_W, 0.0, 1.0],
+                            [0.0, SRC_H, 1.0], [SRC_W, SRC_H, 1.0]])
+
+
+def corner_gap(t1, t2):
+    """Largest distance, over sections and the four corners of a section,
+    between where two stacks of 2x3 transforms send a corner (px)."""
+    c1 = np.einsum("zij,cj->zci", np.asarray(t1, np.float64), SECTION_CORNERS)
+    c2 = np.einsum("zij,cj->zci", np.asarray(t2, np.float64), SECTION_CORNERS)
+    return float(np.linalg.norm(c1 - c2, axis=-1).max())
+
+
+def relative_gap(t1, t2, a, b):
+    """The same for the relative transforms A_b^-1 A_a of the matched pairs
+    (a, b): how far apart two solutions register each pair's sections."""
+    def rel(t):
+        t = np.asarray(t, np.float64)
+        full = np.concatenate(
+            [t, np.broadcast_to([[[0.0, 0.0, 1.0]]], (len(t), 1, 3))], axis=1)
+        return (np.linalg.inv(full[b]) @ full[a])[:, :2]
+    return corner_gap(rel(t1), rel(t2))
+
+
+def exact_alignment(edges, model, reg_lambda=1e-3, products=np.float32):
+    """The plain reference of the z-block solve: the same normal equations
+    (the same regularisation and gauge pin) assembled as one sparse matrix
+    and solved by scipy's sparse LU on the host, in float64. ``edges`` are
+    ``_collect_edges``'s arrays. Each edge's products enter rounded to
+    ``products``: float32 is what both packages' assembly sums (the JAX
+    package's per-edge loop), float64 the exact equations. Returns the
+    (Z, 2, 3) float64 transforms in group-id order."""
+    from scipy import sparse
+    from scipy.sparse.linalg import spsolve
+
+    groups, a, b, p, q, w = edges
+    z, m = len(groups), len(w)
+    w = w.astype(products)
+    ones = np.ones((m, 1), products)
+    if model == "translation":
+        k, ca, cb, reg = 1, ones, ones, 1e-9
+    else:
+        k, reg = 3, reg_lambda
+        ca = np.concatenate([p.astype(products), ones], axis=1)
+        cb = np.concatenate([q.astype(products), ones], axis=1)
+    d = (q - p).astype(products)
+    rows, cols, vals = [], [], []
+    for ia, c1, ib, c2, sign in ((a, ca, a, ca, 1.0), (a, ca, b, cb, -1.0),
+                                 (b, cb, a, ca, -1.0), (b, cb, b, cb, 1.0)):
+        for j in range(k):
+            for col in range(k):
+                rows.append(ia * k + j)
+                cols.append(ib * k + col)
+                vals.append(sign * (w * (c1[:, j] * c2[:, col])))
+    pin = np.zeros(z * k)
+    pin[:k] = alignment_pin(w)
+    N = (sparse.coo_matrix(
+        (np.concatenate(vals).astype(np.float64),
+         (np.concatenate(rows), np.concatenate(cols))), shape=(z * k, z * k))
+         + sparse.diags(reg + pin)).tocsc()
+    rhs = np.zeros((z * k, 2))
+    for idx, c, sign in ((a, ca, 1.0), (b, cb, -1.0)):
+        for j in range(k):
+            wc = w * c[:, j]
+            for comp in range(2):
+                rhs[:, comp] += sign * np.bincount(
+                    idx * k + j, weights=(wc * d[:, comp]).astype(np.float64),
+                    minlength=z * k)
+    x = spsolve(N, rhs).reshape(z, k, 2)
+    out = np.tile(np.array([[1.0, 0, 0], [0, 1.0, 0]]), (z, 1, 1))
+    if model == "translation":
+        out[:, :, 2] += x[:, 0, :]
+    else:
+        out += np.transpose(x, (0, 2, 1))
+    return out
+
+
+def alignment_pin(w):
+    """The gauge pin on section 0's parameters, as both packages set it."""
+    return 2.0 * float(np.sum(w)) + 1.0
+
+
+def alignment_objective(edges, transforms, model, reg_lambda=1e-3):
+    """What the z-block solve minimises, in float64: the weighted squared
+    match residuals of ``transforms`` plus the regularisation and the gauge
+    pin on their offsets from the identity."""
+    groups, a, b, p, q, w = edges
+    t = np.asarray(transforms, np.float64)
+    ones = np.ones((len(w), 1))
+    ph_p = np.concatenate([p.astype(np.float64), ones], axis=1)
+    ph_q = np.concatenate([q.astype(np.float64), ones], axis=1)
+    res = (np.einsum("mij,mj->mi", t[a], ph_p)
+           - np.einsum("mij,mj->mi", t[b], ph_q))
+    delta = t - np.array([[1.0, 0, 0], [0, 1.0, 0]])
+    if model == "translation":
+        delta, reg = delta[:, :, 2], 1e-9
+    else:
+        reg = reg_lambda
+    return float(np.sum(w * np.sum(res**2, axis=1)) + reg * np.sum(delta**2)
+                 + alignment_pin(w) * np.sum(delta[0] ** 2))
+
+
+def objective_excess(recs, transforms, model):
+    """How far ``transforms`` stop above the optimum of the alignment
+    objective of ``recs``: (f - f*) / f*, f* at the exact solve."""
+    from optflow_tpu_torch.align.global_solve import _collect_edges
+
+    edges = _collect_edges(recs)
+    f_exact = alignment_objective(
+        edges, exact_alignment(edges, model, products=np.float64), model)
+    return alignment_objective(edges, transforms, model) / f_exact - 1.0
+
+
+def first_sections(recs, n):
+    """The match records among the first ``n`` sections of a stack."""
+    return [r for r in recs if float(r["qGroupId"]) <= n]
+
+
+def phase_align(results, tmp):
+    """Global alignment of the Sec26 VNC production graph's shape: 9,604
+    sections at z-distance <= 3 (SURVEY.md:329), 28,806 pairs of 2 strip
+    ROIs x 25 points, 1.44 M matches, by the z-block solve on the card
+    (blocks of 256) for the translation and the affine model; the CG solves
+    on the first 256 sections against the z-block solve of the same
+    matches; and ``optflow align`` on a JSONL store of the affine stack."""
+    import torch
+
+    from optflow_tpu_torch.align.global_solve import (
+        _collect_edges,
+        solve_affine_alignment,
+        solve_translation_alignment,
+    )
+    from optflow_tpu_torch.align import zblock
+    from optflow_tpu_torch.align.zblock import solve_zblock_alignment
+    from optflow_tpu_torch.sinks.store import JsonlMatchSink
+    from optflow_tpu_torch.utils.metrics import StageTimer
+
+    n = ALIGN_SECTIONS
+    expected_rms = ALIGN_NOISE_PX * np.sqrt(2.0)
+    stores = {}
+    for model in ("translation", "affine"):
+        t0 = time.perf_counter()
+        recs, mats, (a, b) = alignment_graph(n, seed=11, affine=model == "affine")
+        synth_s = time.perf_counter() - t0
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_zblock_alignment(recs, model=model,
+                                     block_sections=ALIGN_BLOCK,
+                                     device="cuda", timer=timer)
+        wall = time.perf_counter() - t0
+        timing = timer.summary()
+        edges = _collect_edges(recs)
+        t0 = time.perf_counter()
+        exact = exact_alignment(edges, model)  # the same equations
+        exact_s = time.perf_counter() - t0
+        exact64 = exact_alignment(edges, model, products=np.float64)
+        # the z-block solution attains the optimum of the exact equations
+        f_exact = alignment_objective(edges, exact64, model)
+
+        def readings(t):
+            return {"vs_exact_px": corner_gap(t, exact),
+                    "vs_exact_float64_products_px": corner_gap(t, exact64),
+                    "pair_registration_vs_truth_px":
+                    relative_gap(t, mats, a, b),
+                    "objective_excess":
+                    alignment_objective(edges, t, model) / f_exact - 1.0}
+
+        got = readings(res.transforms)
+        # the same solve factorised in float32, the JAX package's dtype
+        zblock._SOLVE_DTYPE = torch.float32
+        try:
+            res32 = solve_zblock_alignment(recs, model=model,
+                                           block_sections=ALIGN_BLOCK,
+                                           device="cuda")
+        finally:
+            zblock._SOLVE_DTYPE = torch.float64
+        if res.group_ids != [f"{z + 1}.0" for z in range(n)]:
+            fail(f"align {model}: sections out of z order")
+        vs_truth = corner_gap(res.transforms, mats)
+        # the CG solve on the first ALIGN_CG_SECTIONS sections (and on the
+        # first 8), and the z-block solve of the same matches
+        cg = (solve_affine_alignment if model == "affine"
+              else solve_translation_alignment)
+        cg_gap, cg_s, cg_excess = {}, {}, {}
+        for n_cg in (8, ALIGN_CG_SECTIONS):
+            sub = first_sections(recs, n_cg)
+            t0 = time.perf_counter()
+            cg_res = cg(sub, device="cuda")
+            cg_s[n_cg] = time.perf_counter() - t0
+            zb_sub = solve_zblock_alignment(sub, model=model,
+                                            block_sections=ALIGN_BLOCK,
+                                            device="cuda")
+            cg_gap[n_cg] = corner_gap(cg_res.transforms, zb_sub.transforms)
+            cg_excess[n_cg] = objective_excess(sub, cg_res.transforms, model)
+        emit({"phase": "align", "model": model, "sections": len(res.group_ids),
+              "pairs": len(recs), "matches": len(recs) * 2 * ALIGN_NPOINTS,
+              "block_sections": ALIGN_BLOCK, "noise_px": ALIGN_NOISE_PX,
+              "wall_s": wall, "collect_s": timing.get("collect_s"),
+              "assemble_s": timing.get("assemble_s"),
+              "device_solve_s": timing.get("solve_device_s"),
+              "solve_s": timing.get("solve_s"),
+              "rms_residual_px": res.residual,
+              "rms_expected_px": expected_rms, **got, "exact_s": exact_s,
+              "float32_solve": readings(res32.transforms),
+              "vs_truth_px": vs_truth,
+              "cg_s": cg_s, "cg_vs_zblock_px": cg_gap,
+              "cg_objective_excess": cg_excess,
+              "synth_s": round(synth_s, 2)})
+        if res.transforms.shape != (n, 2, 3) or not np.isfinite(
+                res.transforms).all():
+            fail(f"align {model}: transforms of shape "
+                 f"{res.transforms.shape} or not finite")
+        if not got["vs_exact_px"] <= 0.01:
+            fail(f"align {model}: the z-block solve is {got['vs_exact_px']} "
+                 "px from the exact solve of the same equations, "
+                 "tolerance 0.01 px")
+        # 1e-5: the transforms come back in float32
+        if not abs(got["objective_excess"]) <= 1e-5:
+            fail(f"align {model}: the z-block solution's objective is "
+                 f"{got['objective_excess']} (relative) off the exact "
+                 "least-squares optimum")
+        if not res.residual <= 1.5 * expected_rms:
+            fail(f"align {model}: rms residual {res.residual} px, the noise "
+                 f"gives {expected_rms}")
+        if model == "translation":
+            pair_gap = got["pair_registration_vs_truth_px"]
+            if not pair_gap <= 0.5:
+                fail(f"align: the matched pairs are registered {pair_gap} px "
+                     "from the truth, gate 0.5 px")
+            if not cg_gap[ALIGN_CG_SECTIONS] <= 0.01:
+                fail(f"align: CG on {ALIGN_CG_SECTIONS} sections is "
+                     f"{cg_gap[ALIGN_CG_SECTIONS]} px from the z-block solve")
+        else:
+            # on 8 sections the CG reaches the optimum; on 256 it stops
+            # where the JAX package's CG stops, within 10 % (float32 sums
+            # in another order move an unconverged CG's path)
+            if not cg_excess[8] <= 1e-4:
+                fail(f"align: the affine CG on 8 sections stops "
+                     f"{cg_excess[8]} (relative) above the optimum")
+            ratio = cg_excess[ALIGN_CG_SECTIONS] / AFFINE_CG_JAX_EXCESS
+            if not abs(ratio - 1.0) <= 0.1:
+                fail(f"align: the affine CG on {ALIGN_CG_SECTIONS} sections "
+                     f"stops {cg_excess[ALIGN_CG_SECTIONS]} above the "
+                     f"optimum, the JAX package's {AFFINE_CG_JAX_EXCESS}")
+        stores[model] = (recs, res)
+
+    # the CLI on a JSONL store of the affine stack
+    recs, res = stores["affine"]
+    store = os.path.join(tmp, "matches.jsonl")
+    t0 = time.perf_counter()
+    JsonlMatchSink(store).put(recs)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "transforms.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "optflow_tpu_torch.cli.main", "align", store,
+         "--out", out],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+        fail(f"optflow align exited with code {proc.returncode}")
+    with open(out) as f:
+        doc = json.load(f)
+    cli_t = np.array([doc["transforms"][g] for g in res.group_ids])
+    cli_gap = corner_gap(cli_t, res.transforms)
+    emit({"phase": "align", "cli": True, "model": doc["model"],
+          "sections": len(doc["transforms"]), "store_mb":
+          os.path.getsize(store) / 2**20, "store_write_s": write_s,
+          "wall_s": cli_wall, "vs_library_px": cli_gap,
+          "last_line": proc.stdout.strip().splitlines()[-1]})
+    if doc["model"] != "affine" or len(doc["transforms"]) != n \
+            or not cli_gap <= 1e-3:
+        fail(f"optflow align: {len(doc['transforms'])} sections, "
+             f"{cli_gap} px from the library's solve")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2444,6 +3050,10 @@ def main(argv=None) -> int:
             phase_level_api(results)
         if "features" in phases:
             phase_features(results, tmp)
+        if "style2" in phases:
+            phase_style2(results, tmp)
+        if "align" in phases:
+            phase_align(results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,7 +1,9 @@
 """The TV-L1 level solve on the GPU: wrapper of the hand-written CUDA kernel
-(``csrc/tvl1_level.cu``), its plain PyTorch version, and the coarse-to-fine
-solve that runs a kernel at every pyramid level (this one, or the blocked
-kernel of ``ops/tvl1_blocked_cuda.py`` for the large levels).
+(``csrc/tvl1_level.cu``), its plain PyTorch version, and two coarse-to-fine
+solves that run a kernel at every pyramid level: this one, or the blocked
+kernel of ``ops/tvl1_blocked_cuda.py`` for the large levels
+(:func:`tvl1_flow_batched_cuda`, style 1), or this one at every level with
+the exact exit (:func:`tvl1_flow_exact_cuda`, style 2).
 
 :func:`tvl1_level_solve` solves one whole level for a batch: given
 ``(i0, i1, u1, u2)`` it returns ``(u1, u2, iterations run per image)``. On a
@@ -398,3 +400,32 @@ def tvl1_flow_batched_cuda(
     read back inside the solve; the per-level iteration counts are kept on
     the device (``ops.tvl1.get_last_iteration_stats``)."""
     return solve_pyramid(i0s, i1s, params, init_flow, _kernel_level_solver)
+
+
+def _exact_level_solver(i0, i1, u1, u2, params, u3):
+    a, b, iters = tvl1_level_solve(i0, i1, u1, u2, params)
+    return a, b, u3, iters
+
+
+def tvl1_flow_exact_cuda(
+    i0s: torch.Tensor,  # (N, H, W)
+    i1s: torch.Tensor,
+    params: TVL1Params = TVL1Params(),
+    init_flow: Optional[torch.Tensor] = None,  # (N, H, W, 2)
+) -> torch.Tensor:
+    """Full coarse-to-fine TV-L1 flow of a batch with :func:`tvl1_level_solve`
+    at EVERY pyramid level, large ones included: the epsilon exit is tested
+    after every iteration at every level, the rule of the plain solver
+    (``ops.tvl1.level_solve_plain``), where :func:`tvl1_flow_batched_cuda`
+    gives the levels above the fused budget the blocked kernel's test every
+    16 iterations. Takes CUDA tensors and raises on a CPU tensor, on
+    ``gamma != 0`` and on a failed build or launch; it never runs the plain
+    version."""
+    if not i0s.is_cuda:
+        raise ValueError(
+            "tvl1_flow_exact_cuda runs the level kernel on CUDA tensors; got "
+            f"a tensor on {i0s.device} (the plain solver is "
+            "ops.tvl1.tvl1_flow_batched)"
+        )
+    return solve_pyramid(i0s, i1s, params, init_flow, _exact_level_solver)
+

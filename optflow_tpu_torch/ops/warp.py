@@ -11,6 +11,7 @@ on (invoked via cv::cuda::OpticalFlowDual_TVL1 at src/optflow.cpp:516-520):
   normalized weights, clamp-to-edge)
 
 - the affine warp of feature pre-alignment (cv::cuda::warpAffine)
+- a clamp-to-edge sampler at arbitrary coordinates (the style-2 remap)
 
 Every function works on the trailing ``(H, W)`` axes, so a single image and
 an ``(N, H, W)`` batch take the same code. The warps are exact gathers: no
@@ -76,6 +77,38 @@ def _cubic_hat(t: torch.Tensor) -> torch.Tensor:
     """
     a = torch.abs(t)
     return a * a * (1.5 * a - 2.5) + 1.0
+
+
+def bilinear_sample(
+    im: torch.Tensor,  # (H, W)
+    x: torch.Tensor,
+    y: torch.Tensor,
+) -> torch.Tensor:
+    """Bilinear sample of ``im`` at float coordinates ``(x, y)`` (any shape,
+    the same for both) with clamp-to-edge borders."""
+    h, w = im.shape
+    x = torch.clamp(x, 0.0, w - 1.0)
+    y = torch.clamp(y, 0.0, h - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    x1i = torch.clamp(x0i + 1, max=w - 1)
+    y1i = torch.clamp(y0i + 1, max=h - 1)
+    flat = im.reshape(-1)
+
+    def tap(yi, xi):  # the flat index clipped, as jnp.take(mode="clip")
+        return flat[torch.clamp(yi * w + xi, 0, h * w - 1)]
+
+    v00 = tap(y0i, x0i)
+    v01 = tap(y0i, x1i)
+    v10 = tap(y1i, x0i)
+    v11 = tap(y1i, x1i)
+    return (1 - fy) * ((1 - fx) * v00 + fx * v01) + fy * (
+        (1 - fx) * v10 + fx * v11
+    )
 
 
 def warp_backward(

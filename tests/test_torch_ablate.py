@@ -24,6 +24,10 @@ from optflow_tpu_torch.ops.tvl1_chunk_cuda import (
 )
 from optflow_tpu_torch.tools import kernel_ablate, smem_cap
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 N, H, W = 2, 20, 150  # one block of the JAX tool's geometry: 24 x 256 canvas
 
 

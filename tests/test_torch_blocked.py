@@ -20,6 +20,10 @@ from optflow_tpu_torch.ops import tvl1_cuda as tc
 from tests.conftest import make_fibsem_like
 from tests.test_tvl1 import translate
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 K = 8  # iterations per chunk in these tests, on both sides
 
 

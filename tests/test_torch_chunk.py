@@ -21,6 +21,10 @@ from optflow_tpu_torch.ops import tvl1_chunk_cuda as tcc
 from tests.conftest import make_fibsem_like
 from tests.test_tvl1 import translate
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 
 def _params(**kw):
     jp = JaxParams(**kw)

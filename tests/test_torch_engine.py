@@ -23,6 +23,10 @@ from optflow_tpu_torch.engine import device_group as tdg
 from optflow_tpu_torch.engine.rois import Roi
 from optflow_tpu_torch.ops.tvl1 import tvl1_flow_batched
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 SRC_H, SRC_W, STRIP, SCALE = 128, 256, 32, 0.5
 DX_STEP, DY_STEP, MAX_DZ, N_PAIRS = 2.2, -1.2, 3, 12
 DARK_COLS = 5  # working-resolution columns of background, where asked

@@ -30,6 +30,10 @@ from optflow_tpu_torch.features import ransac as transac
 from tests.conftest import make_fibsem_like
 from tests.test_features import _affine_warp_np
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 H, W = 128, 256
 IDENTITY = np.array([[1, 0, 0], [0, 1, 0]], np.float32)
 

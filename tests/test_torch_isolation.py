@@ -8,6 +8,10 @@ import sys
 
 import torch
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -30,6 +34,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch.ops.smem_cap_cuda\n"
         "import optflow_tpu_torch.tools.kernel_ablate\n"
         "import optflow_tpu_torch.tools.smem_cap\n"
+        "import optflow_tpu_torch.align\n"
+        "import optflow_tpu_torch.align.zblock\n"
+        "import optflow_tpu_torch.sinks.render_client\n"
+        "import optflow_tpu_torch.tools.gen_pairs\n"
+        "import optflow_tpu_torch.tools.upload_matches\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'optflow_tpu' or "
         "m.startswith('optflow_tpu.'))\n"
@@ -62,7 +71,10 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "features/descriptors.py", "features/match.py",
             "features/ransac.py", "engine/features_glue.py",
             "tools/kernel_ablate.py", "tools/smem_cap.py",
-            "ops/tvl1_ablate_cuda.py", "ops/smem_cap_cuda.py"} <= rel
+            "ops/tvl1_ablate_cuda.py", "ops/smem_cap_cuda.py",
+            "align/global_solve.py", "align/zblock.py",
+            "align/average_flow.py", "sinks/render_client.py",
+            "tools/gen_pairs.py", "tools/upload_matches.py"} <= rel
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -96,6 +108,7 @@ def test_entry_points_default_to_the_gpu():
     import inspect
 
     from optflow_tpu_torch import convert
+    from optflow_tpu_torch.align import average_flow, global_solve, zblock
     from optflow_tpu_torch.cli import main as cli
     from optflow_tpu_torch.engine import (
         batch_runner,
@@ -111,10 +124,15 @@ def test_entry_points_default_to_the_gpu():
                convert.flow_from_numpy, convert.canvas_to_tensor,
                convert.keypoints_from_numpy, convert.affine_from_numpy,
                align.find_alignment, features_glue.default_aligner,
-               kernel_ablate.run_ablation, smem_cap.run_probe):
+               kernel_ablate.run_ablation, smem_cap.run_probe,
+               average_flow.average_flow_job,
+               global_solve.solve_translation_alignment,
+               global_solve.solve_affine_alignment,
+               zblock.solve_zblock_alignment):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__name__
-    for main in (cli.main, kernel_ablate.main, smem_cap.main):
+    for main in (cli.main, cli._align_main, kernel_ablate.main,
+                 smem_cap.main):
         assert 'default="cuda"' in inspect.getsource(main)
 
 

@@ -13,6 +13,10 @@ from optflow_tpu_torch.ops import pyramid as tpyr
 from optflow_tpu_torch.ops import warp as twarp
 from tests.conftest import make_fibsem_like
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))

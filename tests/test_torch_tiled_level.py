@@ -25,6 +25,10 @@ from optflow_tpu_torch.ops.warp import centered_gradient, warp_backward
 from tests.conftest import make_fibsem_like
 from tests.test_tvl1 import translate
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 
 def _params(**kw):
     jp = JaxParams(**kw)

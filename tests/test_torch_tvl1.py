@@ -23,6 +23,10 @@ from optflow_tpu_torch.ops.tvl1_cuda import (
 from tests.conftest import make_fibsem_like
 from tests.test_tvl1 import translate
 
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
 H, W = 40, 56
 
 
