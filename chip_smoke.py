@@ -21,7 +21,12 @@ PyTorch version on the card:
   the CLI: the level kernel at every pyramid level of every section;
 - the global stack alignment of a production-sized match graph: the
   z-block and CG solves (plain PyTorch linear algebra on the card) and
-  ``optflow align``.
+  ``optflow align``;
+- distribution over a mesh of the visible cards, or of one card entered
+  four times: the pair scheduler, the row-tiled halo solve of a full
+  1024x2048 section, ``run_job_batched`` on a pairs mesh (the level and
+  blocked kernels once for each device and each tile), the sharded
+  alignment solves, and two processes of the pod launcher.
 
 Needs no file from outside the repository and no network: frames are
 synthesised from a seed.
@@ -82,6 +87,19 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            translation model, the matched pairs against the truth; the CG
            solves on the first 256 sections against the z-block solve; and
            `optflow align` on a JSONL store of the affine stack
+  dist     a mesh of the visible cards, or cuda:0 four times on one card
+           (a line says which): 32 strip pairs through PairScheduler against
+           one batched call (flows, counts, launches); a 1024x2048 section
+           through tiled_tvl1_flow over 4 rows against the monolithic solve
+           (every row, the seams included), ring against gather, the kernel
+           of each window level, and one window's two finest levels (B) and
+           two of A's against the plain versions on the same inputs; the
+           64-pair job through run_job_batched on 4 pairs devices against
+           the one-device run; the sharded z-block (float64 solutions and
+           the mesh call's transforms) and CG solves (4 runs each, distance
+           and objective excess) of the align graph against the unsharded;
+           two processes of optflow_tpu_torch.cli.run_pod on a 16-pair PNG
+           job
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line with
 every kernel's launches on the main path, its error against the plain
@@ -109,7 +127,7 @@ import numpy as np
 
 ALL_PHASES = ("device", "build", "kernels", "ablate", "smem_cap", "solve",
               "job", "cli", "section", "level_api", "features", "style2",
-              "align")
+              "align", "dist")
 KERNEL_STEMS = ("tvl1_level", "tvl1_blocked", "tvl1_chunk", "tvl1_ablate",
                 "smem_cap")
 
@@ -2980,6 +2998,7 @@ def phase_align(results, tmp):
                      f"stops {cg_excess[ALIGN_CG_SECTIONS]} above the "
                      f"optimum, the JAX package's {AFFINE_CG_JAX_EXCESS}")
         stores[model] = (recs, res)
+    results["align_stores"] = stores
 
     # the CLI on a JSONL store of the affine stack
     recs, res = stores["affine"]
@@ -3012,6 +3031,707 @@ def phase_align(results, tmp):
             or not cli_gap <= 1e-3:
         fail(f"optflow align: {len(doc['transforms'])} sections, "
              f"{cli_gap} px from the library's solve")
+
+
+# --------------------------------------------------------------------------
+# dist: the mesh, the pair scheduler, the tiled solve, the batch runner on a
+# mesh, the sharded alignment solves and the pod launcher
+# --------------------------------------------------------------------------
+
+DIST_PAIRS = 32  # strip pairs through the scheduler: the job's group size
+DIST_ROWS = 4  # rows axis of the tiled solve; the scheduler's pairs axis
+DIST_POD_PAIRS = 16  # the cli phase's job
+# The translation CGs on the align graph's first sections: float32 atomics
+# move each CG's stop run to run, 2.1e-3 px between two runs of the
+# one-device CG on an H100, every answer 2.3e-3-3.6e-3 px from the z-block
+# optimum. So each runs DIST_CG_RUNS times, every sharded run is held within
+# DIST_CG_GATE_PX of every one-device run (3.5e-3 and 3.9e-3 px the widest
+# of 16 pairs in two runs) and its objective excess under
+# DIST_CG_EXCESS_GATE (3.8e-8-7.3e-8 seen).
+DIST_CG_RUNS = 4
+DIST_CG_GATE_PX = 7.5e-3
+DIST_CG_EXCESS_GATE = 2e-7
+
+
+def dist_devices():
+    """The mesh's devices: every visible card, or cuda:0 entered DIST_ROWS
+    times on a one-card machine (its entries share the card and its
+    stream). Returns (devices, description)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        # a count that divides the section's 1024 rows
+        devs = [torch.device("cuda", i)
+                for i in range(DIST_ROWS if n >= DIST_ROWS else 2)]
+        return devs, f"{len(devs)} visible cards: " + ", ".join(map(str, devs))
+    return ([torch.device("cuda:0")] * DIST_ROWS,
+            f"one visible card: cuda:0 entered {DIST_ROWS} times, one stream")
+
+
+def strip_pairs(sections, n_pairs):
+    """``n_pairs`` strip pairs of the job's geometry (half-resolution frames,
+    top and bottom strips of STRIP rows) at z-distance <= MAX_DZ, and each
+    pair's z-distance."""
+    half = [s.reshape(SRC_H // 2, 2, SRC_W // 2, 2).astype(np.float32)
+            .mean(axis=(1, 3)) for s in sections]
+    pairs, dzs = [], []
+    for z in range(len(half)):
+        for dz in range(1, MAX_DZ + 1):
+            for top in (0, STRIP):
+                if z + dz < len(half) and len(pairs) < n_pairs:
+                    pairs.append((half[z][top:top + STRIP],
+                                  half[z + dz][top:top + STRIP]))
+                    dzs.append(dz)
+    return pairs, dzs
+
+
+def interior_epe(flow, dx, dy, margin=16):
+    f = np.asarray(flow)[margin:-margin, margin:-margin]
+    return float(np.hypot(f[..., 0] - dx, f[..., 1] - dy).mean())
+
+
+def dist_scheduler(devs, sections):
+    """32 strip pairs through PairScheduler over a pairs axis of the mesh's
+    devices against one tvl1_flow_batched_cuda call on the same 32."""
+    import threading
+
+    import torch
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.dist import scheduler as sched_mod
+    from optflow_tpu_torch.dist.mesh import make_pair_mesh
+    from optflow_tpu_torch.ops.tvl1 import get_last_iteration_stats
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_batched_cuda
+
+    pairs, dzs = strip_pairs(sections, DIST_PAIRS)
+    params = TVL1Params()
+    mesh = make_pair_mesh(devices=devs)
+    sched = sched_mod.PairScheduler(mesh, params)
+    i0s = np.stack([p[0] for p in pairs])
+    i1s = np.stack([p[1] for p in pairs])
+
+    def one_call():
+        flow = tvl1_flow_batched_cuda(torch.from_numpy(i0s).cuda(),
+                                      torch.from_numpy(i1s).cuda(), params)
+        return flow.cpu().numpy()
+
+    one = one_call()
+    one_counts = [it.cpu() for _, it in get_last_iteration_stats()]
+
+    # the shards' iteration counts, read in their own threads (the counts
+    # are kept per thread) by a wrapper around the scheduler's solver
+    solve, seen, lock = sched_mod.tvl1_flow_batched, [], threading.Lock()
+
+    def recording(a, b, p):
+        flow = solve(a, b, p)
+        counts = [it.cpu() for _, it in get_last_iteration_stats()]
+        with lock:
+            seen.append((a[0].cpu().numpy(), counts))
+        return flow
+
+    sched_mod.tvl1_flow_batched = recording
+    try:
+        flows = sched.solve_pairs(pairs)
+    finally:
+        sched_mod.tvl1_flow_batched = solve
+    per = DIST_PAIRS // len(devs)
+    order = [next(d for d in range(len(devs))
+                  if np.array_equal(a0, i0s[d * per])) for a0, _ in seen]
+    shard_counts = [torch.cat([seen[order.index(d)][1][lv]
+                               for d in range(len(devs))])
+                    for lv in range(len(one_counts))]
+    counts_equal = all(torch.equal(a, b)
+                       for a, b in zip(shard_counts, one_counts))
+    diff = max(float(np.abs(f - o).max()) for f, o in zip(flows, one))
+    epe = float(np.mean([interior_epe(f, dz * DX_STEP * SCALE,
+                                      dz * DY_STEP * SCALE)
+                         for f, dz in zip(flows, dzs)]))
+
+    # the main path: counts set to 0 just before, read just after
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernels, memops = enqueued_launches(lambda: sched.solve_pairs(pairs))
+    sched_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_call()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    return {
+        "pairs": len(pairs), "shape": list(i0s.shape[1:]),
+        "pairs_axis": len(devs), "max_abs_diff_px": diff, "gate_px": 1e-4,
+        "counts_equal": counts_equal, "epe_px": epe, "epe_gate_px": 0.5,
+        "scheduler_ms": sched_ms, "single_call_ms": one_ms,
+        "level_kernel_launches": launches["tvl1_level_solve"],
+        "blocked_kernel_launches": launches["tvl1_blocked_level_solve"],
+        "device_launches": kernels, "device_memops": memops,
+        "expected_device_launches": len(devs) * len(one_counts),
+    }, launches
+
+
+def dist_tiled(devs, sections):
+    """One 1024x2048 section at full resolution through tiled_tvl1_flow over
+    a rows axis of the mesh's devices against the monolithic solve."""
+    import torch
+
+    import threading
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.dist import tiled
+    from optflow_tpu_torch.dist.mesh import make_pair_mesh
+    from optflow_tpu_torch.ops import tvl1_cuda
+    from optflow_tpu_torch.ops.pyramid import pyramid_shapes
+    from optflow_tpu_torch.ops.tvl1_cuda import (
+        takes_blocked_kernel,
+        tvl1_flow_batched_cuda,
+    )
+
+    params = TVL1Params()
+    mesh = make_pair_mesh(1, len(devs), devices=devs)
+    im0 = sections[0].astype(np.float32)
+    im1 = sections[1].astype(np.float32)
+    h, w = im0.shape
+    n_rows = len(devs)
+    block = h // n_rows
+    halo = tiled.default_halo(params, 8.0, h, w)
+    win = block + 2 * halo
+    kinds = ["blocked" if takes_blocked_kernel(*shape) else "level"
+             for shape in pyramid_shapes(win, w, params.nscales,
+                                         params.scale_step)]
+
+    def mono_call():
+        return tvl1_flow_batched_cuda(torch.from_numpy(im0)[None].cuda(),
+                                      torch.from_numpy(im1)[None].cuda(),
+                                      params)[0]
+
+    mono = mono_call()
+    # the gather run keeps every window's level solves (inputs and the
+    # kernels' results) for the check against the plain versions below
+    solver, calls, lock = tvl1_cuda._kernel_level_solver, [], threading.Lock()
+
+    def recording(i0, i1, u1, u2, p, u3):
+        out = solver(i0, i1, u1, u2, p, u3)
+        with lock:
+            calls.append((threading.get_ident(),
+                          [t.clone() for t in (i0, i1, u1, u2)],
+                          [out[0].clone(), out[1].clone(), out[3].clone()]))
+        return out
+
+    tvl1_cuda._kernel_level_solver = recording
+    try:
+        gathered = tiled.tiled_tvl1_flow(im0, im1, params, mesh,
+                                         neighbor_exchange=False)
+    finally:
+        tvl1_cuda._kernel_level_solver = solver
+    # the main path: counts set to 0 just before, read just after
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    kernels, memops = enqueued_launches(
+        lambda: tiled.tiled_tvl1_flow(im0, im1, params, mesh))
+    launches = read_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow = tiled.tiled_tvl1_flow(im0, im1, params, mesh)
+    clip = tiled.get_last_clip_fraction()
+    tiled_ms = (time.perf_counter() - t0) * 1e3
+    shortfall = tiled.get_last_halo_shortfall()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono_call().cpu()
+    mono_ms = (time.perf_counter() - t0) * 1e3
+
+    window_levels = window_levels_vs_plain(calls, im0[:win], kinds, params)
+    diff = (flow - mono).abs()
+    seams = [d * block + k for d in range(1, n_rows) for k in (-1, 0)]
+    f = flow.cpu().numpy()
+    return {
+        "shape": [h, w], "rows_axis": n_rows, "halo": halo,
+        "window": [win, w], "device": str(flow.device),
+        "max_abs_diff_px": float(diff[:, 8:-8].max()),
+        "max_abs_diff_all_columns_px": float(diff.max()),
+        "max_abs_diff_seam_rows_px": float(diff[seams][:, 8:-8].max()),
+        "gate_px": 0.25, "epe_px": interior_epe(f, DX_STEP, DY_STEP),
+        "epe_gate_px": 0.5, "finite": bool(np.isfinite(f).all()),
+        "ring_equals_gather": bool(torch.equal(flow, gathered)),
+        "clip_fraction": clip, "halo_shortfall": shortfall,
+        "window_level_kernels": kinds,
+        "window_levels_vs_plain": window_levels,
+        "level_kernel_launches": launches["tvl1_level_solve"],
+        "blocked_kernel_launches": launches["tvl1_blocked_level_solve"],
+        "expected_launches": {"level": n_rows * kinds.count("level"),
+                              "blocked": n_rows * kinds.count("blocked")},
+        "device_launches": kernels, "device_memops": memops,
+        "tiled_ms": tiled_ms, "monolithic_ms": mono_ms,
+    }, launches
+
+
+def window_levels_vs_plain(calls, top, kinds, params):
+    """The first window's (rows 0..) level solves, as the tiled solve's
+    kernels computed them, against the plain versions on the same inputs:
+    B at the window's two finest levels, A at its finest and its coarsest
+    own level. ``calls`` are (thread, inputs, kernel results) of every
+    window's levels, coarsest first; ``top`` the image rows of the first
+    window; ``kinds`` each window level's kernel, finest first. Each level
+    is also solved again by its kernel, which must repeat the tiled
+    solve's result bit for bit."""
+    import torch
+
+    from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
+        tvl1_blocked_level_solve,
+        tvl1_blocked_level_solve_plain,
+    )
+    from optflow_tpu_torch.ops.tvl1_cuda import (
+        tvl1_level_solve,
+        tvl1_level_solve_plain,
+    )
+
+    top = torch.from_numpy(top)
+    thread = next(t for t, ins, _ in calls
+                  if torch.equal(ins[0][0].cpu(), top))
+    mine = [(ins, outs) for t, ins, outs in calls if t == thread][::-1]
+    first_a = kinds.index("level")
+    out = []
+    for lv in sorted({0, 1, first_a, len(kinds) - 1}):
+        ins, (u1, u2, iters) = mine[lv]
+        if kinds[lv] == "blocked":
+            kernel, plain = (tvl1_blocked_level_solve,
+                             tvl1_blocked_level_solve_plain)
+        else:
+            kernel, plain = tvl1_level_solve, tvl1_level_solve_plain
+        again = kernel(*ins, params)
+        p1, p2, pit = plain(*ins, params)
+        out.append({
+            "level": lv, "shape": list(ins[0].shape), "kernel": kernel.__name__,
+            "max_abs_du": flow_diff((u1, u2), (p1, p2)), "tolerance": 1e-3,
+            "iters_kernel": iters.tolist(), "iters_plain": pit.tolist(),
+            "rerun_bit_identical": all(torch.equal(a, b) for a, b in
+                                       zip((u1, u2, iters), again)),
+        })
+    return out
+
+
+def dist_engine(devs, sections, tmp):
+    """The job phase's 64-pair strip job through run_job_batched on a pairs
+    mesh of the devices, against the one-device run."""
+    import torch
+
+    from optflow_tpu_torch.dist.mesh import make_pair_mesh
+    from optflow_tpu_torch.engine.batch_runner import run_job_batched
+
+    n_pairs = 64
+    n_frames = n_pairs // MAX_DZ + MAX_DZ + 1
+    names = [f"mem://sec_{z:04d}" for z in range(n_frames)]
+    half = {nm: s.reshape(SRC_H // 2, 2, SRC_W // 2, 2).astype(np.float32)
+            .mean(axis=(1, 3)) for nm, s in zip(names, sections)}
+
+    def loader(path, scale):
+        return half[path]
+
+    runs = {}
+    for side in ("single", "mesh"):
+        job = build_job(names, n_pairs,
+                        os.path.join(tmp, f"dist_{side}.journal"), "job")
+        sink = MockRenderSink()
+        kw = ({"mesh": make_pair_mesh(devices=devs)} if side == "mesh"
+              else {"device": "cuda"})
+        if side == "mesh":
+            zero_launch_counts()  # the main path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = run_job_batched(job, sink=sink, loader=loader, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err, n_matches = gate_matches(sink.match_sets, job)
+        runs[side] = {"stats": stats, "wall_s": wall, "match_err_px": err,
+                      "gated_matches": n_matches}
+    launches = read_launch_counts()
+    keys = ("pairs", "batched", "sequential", "uploads", "matches")
+    return {
+        "pairs_axis": len(devs), "pair_batch": 16,
+        "stats_equal": all(runs["mesh"]["stats"][k] == runs["single"]["stats"][k]
+                           for k in keys),
+        "counts": {k: runs["mesh"]["stats"][k] for k in keys},
+        "match_err_px": runs["mesh"]["match_err_px"],
+        "single_match_err_px": runs["single"]["match_err_px"],
+        "gated_matches": runs["mesh"]["gated_matches"], "gate_px": 1.0,
+        "solve_device": runs["mesh"]["stats"].get("solve_device"),
+        "wall_s": runs["mesh"]["wall_s"],
+        "single_wall_s": runs["single"]["wall_s"],
+        "level_kernel_launches": launches["tvl1_level_solve"],
+        "timing": runs["mesh"]["stats"]["timing"],
+    }, launches
+
+
+def schur_gap_px(xa, xb, k):
+    """Largest distance, over sections and the four corners of a section,
+    between where two float64 solutions (x_I, x_S) of the z-block system
+    move a corner: the solutions before they are rounded into float32
+    transforms. ``k`` parameters per section and component."""
+    d = np.concatenate([(xa[0] - xb[0]).reshape(-1, k, 2),
+                        (xa[1] - xb[1]).reshape(-1, k, 2)])
+    if k == 1:
+        return float(np.linalg.norm(d[:, 0], axis=-1).max())
+    moved = np.einsum("ck,skd->scd", SECTION_CORNERS, d)
+    return float(np.linalg.norm(moved, axis=-1).max())
+
+
+def dist_align(devs, results):
+    """The align phase's graph: the sharded z-block solve over the pairs
+    devices against the unsharded one, in float64 (the Schur solve of the
+    same assembled system) and through the library (float32 transforms)
+    against the exact solve; the sharded CG on the first ALIGN_CG_SECTIONS
+    sections against the one-device CG and the z-block solve."""
+    from optflow_tpu_torch.align import zblock
+    from optflow_tpu_torch.align.distributed import (
+        solve_affine_alignment_sharded,
+        solve_translation_alignment_sharded,
+    )
+    from optflow_tpu_torch.align.global_solve import (
+        _collect_edges,
+        solve_affine_alignment,
+        solve_translation_alignment,
+    )
+    from optflow_tpu_torch.align.zblock import solve_zblock_alignment
+    from optflow_tpu_torch.dist.mesh import make_pair_mesh
+
+    mesh = make_pair_mesh(devices=devs)
+    stores = results.get("align_stores", {})
+    out = {}
+    for model in ("translation", "affine"):
+        if model in stores:
+            recs = stores[model][0]
+        else:
+            recs, _, _ = alignment_graph(ALIGN_SECTIONS, seed=11,
+                                         affine=model == "affine")
+        # the unsharded solve, its assembled system and float64 solution
+        # kept by a wrapper around the Schur solve
+        schur, seen = zblock._schur_solve, {}
+
+        def keep(*system, **kw):
+            seen["system"] = system[:5]
+            seen["x"] = schur(*system, **kw)
+            return seen["x"]
+
+        zblock._schur_solve = keep
+        try:
+            single = solve_zblock_alignment(recs, model=model,
+                                            block_sections=ALIGN_BLOCK,
+                                            device="cuda")
+        finally:
+            zblock._schur_solve = schur
+        x_sharded = zblock._schur_solve_sharded(*seen["system"], devs)
+        t0 = time.perf_counter()
+        sharded = solve_zblock_alignment(recs, model=model,
+                                         block_sections=ALIGN_BLOCK,
+                                         mesh=mesh)
+        wall = time.perf_counter() - t0
+        exact = exact_alignment(_collect_edges(recs), model)
+        sub = first_sections(recs, ALIGN_CG_SECTIONS)
+        if model == "translation":
+            cg, cg_sharded = (solve_translation_alignment,
+                              solve_translation_alignment_sharded)
+        else:
+            cg, cg_sharded = (solve_affine_alignment,
+                              solve_affine_alignment_sharded)
+        # float32 atomics make each CG's answer move run to run: the
+        # translation CGs run DIST_CG_RUNS times each, every pair compared
+        runs = DIST_CG_RUNS if model == "translation" else 1
+        t0 = time.perf_counter()
+        cg_shs = [cg_sharded(sub, mesh)]
+        cg_s = time.perf_counter() - t0
+        cg_shs += [cg_sharded(sub, mesh) for _ in range(runs - 1)]
+        cg_ones = [cg(sub, device="cuda") for _ in range(runs)]
+        cg_sh, cg_one = cg_shs[0], cg_ones[0]
+
+        def widest(xs, ys):
+            return max(corner_gap(x.transforms, y.transforms)
+                       for x in xs for y in ys if x is not y)
+        zb_sub = solve_zblock_alignment(sub, model=model,
+                                        block_sections=ALIGN_BLOCK,
+                                        device="cuda")
+        out[model] = {
+            "zblock_sharded_vs_unsharded_float64_px": schur_gap_px(
+                x_sharded, seen["x"], 1 if model == "translation" else 3),
+            "zblock_sharded_vs_unsharded_px":
+            corner_gap(sharded.transforms, single.transforms),
+            "zblock_sharded_vs_exact_px": corner_gap(sharded.transforms,
+                                                     exact),
+            "zblock_unsharded_vs_exact_px": corner_gap(single.transforms,
+                                                       exact),
+            "zblock_sharded_s": wall,
+            "cg_runs": runs,
+            "cg_sharded_vs_single_px": widest(cg_shs, cg_ones),
+            "cg_single_reruns_px": widest(cg_ones, cg_ones) if runs > 1
+            else None,
+            "cg_sharded_reruns_px": widest(cg_shs, cg_shs) if runs > 1
+            else None,
+            "cg_sharded_vs_zblock_px": corner_gap(cg_sh.transforms,
+                                                  zb_sub.transforms),
+            "cg_single_vs_zblock_px": corner_gap(cg_one.transforms,
+                                                 zb_sub.transforms),
+            "cg_sharded_objective_excess": max(
+                objective_excess(sub, x.transforms, model) for x in cg_shs),
+            "cg_single_objective_excess":
+            objective_excess(sub, cg_one.transforms, model),
+            "cg_sharded_s": cg_s,
+        }
+    return out
+
+
+def dist_pod(sections, tmp):
+    """Two processes of ``python -m optflow_tpu_torch.cli.run_pod`` on the
+    cli phase's 16-pair job from PNG files, as `flow` TIFFs, gloo on a free
+    local port, both on the card."""
+    import socket
+
+    from optflow_tpu_torch.core import imgio
+    from optflow_tpu_torch.core.imgio import read_float_tiff
+
+    decoder = imgio.decoder_name()
+    if decoder is None:
+        fail("dist pod: no image decoder installed for the PNG job")
+    n_frames = DIST_POD_PAIRS // MAX_DZ + MAX_DZ + 1
+    names = write_pngs(sections[:n_frames], os.path.join(tmp, "pod_stack"),
+                       decoder)
+    journal = os.path.join(tmp, "pod.journal")
+    job = build_job(names, DIST_POD_PAIRS, journal, "pod")
+    out_dir = os.path.join(tmp, "pod_out")
+    job.update(output_type="flow", output_dir=out_dir, match_sink="null")
+    job_path = os.path.join(tmp, "pod.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "optflow_tpu_torch.cli.run_pod", job_path,
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(r)],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                print(out[-2000:], err[-4000:], file=sys.stderr)
+                fail(f"dist pod: host {r} exited with {proc.returncode}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    lines = [next((ln for ln in out.splitlines()
+                   if ln.startswith(f"[host {r}/2] done:")), None)
+             for r, out in enumerate(outs)]
+    want = sorted(f"{im['output_name']}_{SCALE:0.2f}_{roi}_{c}.tiff"
+                  for im in job["images"] for roi in ("top", "bottom")
+                  for c in "xy")
+    written = sorted(os.listdir(out_dir))
+    per_rank = []
+    for r in range(2):
+        with open(f"{journal}.{r}") as f:
+            recs = [json.loads(ln) for ln in f if '"pair"' in ln]
+        per_rank.append(sorted(rec["key"].split("|")[2] for rec in recs))
+    epes = []
+    for im in job["images"]:
+        for roi in ("top", "bottom"):
+            base = os.path.join(out_dir, f"{im['output_name']}_"
+                                f"{SCALE:0.2f}_{roi}")
+            fx = read_float_tiff(base + "_x.tiff")
+            fy = read_float_tiff(base + "_y.tiff")
+            epes.append(interior_epe(np.stack([fx, fy], axis=-1),
+                                     im["dz"] * DX_STEP * SCALE,
+                                     im["dz"] * DY_STEP * SCALE))
+    names_all = sorted(im["output_name"] for im in job["images"])
+    return {
+        "processes": 2, "pairs": len(job["images"]),
+        "host_lines": [ln[:160] if ln else None for ln in lines],
+        "files": len(written), "files_expected": len(want),
+        "outputs_exactly_once": written == want,
+        "journal_pairs": [len(p) for p in per_rank],
+        "journals_disjoint": not set(per_rank[0]) & set(per_rank[1])
+        and sorted(per_rank[0] + per_rank[1]) == names_all,
+        "mean_epe_px": float(np.mean(epes)), "epe_gate_px": 0.5,
+        "wall_s": wall,
+    }
+
+
+# Heights of the images that the threads of dist_concurrent solve at once,
+# 512 columns each: every one tiles its levels with another tile height, so
+# another shared memory size a launch; 840 rows takes the blocked kernel at
+# its finest level (430,080 px above FUSED_PX_BUDGET).
+DIST_CONCURRENT_HEIGHTS = (64, 96, 136, 200, 264, 328, 392, 840)
+DIST_CONCURRENT_ROUNDS = 10
+
+
+def dist_concurrent(devs):
+    """One thread per height of DIST_CONCURRENT_HEIGHTS on the mesh's
+    devices, taken in turn, each solving its own shape at the same time as
+    the others, DIST_CONCURRENT_ROUNDS times: every flow must equal the same
+    solve made alone, bit for bit, and no launch may be refused. A refusal
+    is counted and fails the phase. This is the race of a kernel's shared
+    memory attribute between two threads, which refused launches with CUDA
+    error 701 before the libraries held a lock around it."""
+    import torch
+
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.dist.mesh import on_devices
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_batched_cuda
+
+    rng = np.random.default_rng(7)
+    threads = [devs[i % len(devs)]
+               for i in range(len(DIST_CONCURRENT_HEIGHTS))]
+    inputs = []
+    for dev, h in zip(threads, DIST_CONCURRENT_HEIGHTS):
+        a = rng.random((1, h, 512), dtype=np.float32)
+        inputs.append((torch.from_numpy(a).to(dev),
+                       torch.from_numpy(np.roll(a, 1, axis=-1)).to(dev)))
+    params = TVL1Params()
+    alone = [tvl1_flow_batched_cuda(a, b, params) for a, b in inputs]
+    torch.cuda.synchronize()
+    refused = []
+
+    def solve(dev, i):
+        try:
+            return tvl1_flow_batched_cuda(*inputs[i], params)
+        except RuntimeError as e:  # counted below; it fails the phase
+            refused.append(str(e))
+            return None
+
+    differ = 0
+    t0 = time.perf_counter()
+    for _ in range(DIST_CONCURRENT_ROUNDS):
+        outs = on_devices(solve, threads, range(len(threads)))
+        torch.cuda.synchronize()
+        differ += sum(o is not None and not torch.equal(o, f)
+                      for o, f in zip(outs, alone))
+    return {"threads": len(threads), "devices": [str(d) for d in threads],
+            "shapes": [[1, h, 512] for h in DIST_CONCURRENT_HEIGHTS],
+            "rounds": DIST_CONCURRENT_ROUNDS, "refused": len(refused),
+            "first_refusal": refused[0] if refused else None,
+            "flows_differing": differ,
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def phase_dist(results, tmp):
+    """Distribution on the card: a mesh of the visible cards, or of cuda:0
+    entered four times (its shards then run in turn on one stream). Prints
+    which, then one JSON line; every gate is checked after it."""
+    devs, described = dist_devices()
+    print(f"chip_smoke: dist mesh: {described}", flush=True)
+    sections = results.get("sections")
+    if sections is None or len(sections) < 25:
+        sections = synth_stack(64 // MAX_DZ + MAX_DZ + 1)
+    sched, l_sched = dist_scheduler(devs, sections)
+    til, l_tiled = dist_tiled(devs, sections)
+    eng, l_eng = dist_engine(devs, sections, tmp)
+    aln = dist_align(devs, results)
+    pod = dist_pod(sections, tmp)
+    conc = dist_concurrent(devs)
+    emit({"phase": "dist", "mesh": described, "scheduler": sched,
+          "tiled": til, "engine": eng, "align": aln, "pod": pod,
+          "concurrent": conc})
+
+    failed = []
+    if not sched["max_abs_diff_px"] <= sched["gate_px"]:
+        failed.append(f"scheduler {sched['max_abs_diff_px']} px from one "
+                      "batched call")
+    if not sched["counts_equal"]:
+        failed.append("scheduler iteration counts differ from one call's")
+    if not sched["epe_px"] <= 0.5:
+        failed.append(f"scheduler EPE {sched['epe_px']} px")
+    if sched["device_launches"] != sched["expected_device_launches"] or \
+            sched["level_kernel_launches"] != sched["expected_device_launches"]:
+        failed.append(f"scheduler launches {sched['device_launches']} / "
+                      f"{sched['level_kernel_launches']}, expected "
+                      f"{sched['expected_device_launches']}")
+    if not (til["finite"] and til["max_abs_diff_px"] <= til["gate_px"]):
+        failed.append(f"tiled {til['max_abs_diff_px']} px from monolithic")
+    if not til["epe_px"] <= 0.5:
+        failed.append(f"tiled EPE {til['epe_px']} px")
+    if not til["ring_equals_gather"]:
+        failed.append("tiled: ring and gather differ")
+    for lv in til["window_levels_vs_plain"]:
+        if not (lv["max_abs_du"] <= lv["tolerance"]
+                and lv["iters_kernel"] == lv["iters_plain"]
+                and lv["rerun_bit_identical"]):
+            failed.append(f"tiled window level {lv['level']} {lv['shape']}: "
+                          f"{lv['kernel']} {lv['max_abs_du']} px from its "
+                          f"plain version, counts {lv['iters_kernel']} / "
+                          f"{lv['iters_plain']}, rerun "
+                          f"{lv['rerun_bit_identical']}")
+    if til["halo_shortfall"] != 0 or til["window_level_kernels"][:2] != [
+            "blocked", "blocked"]:
+        failed.append(f"tiled: shortfall {til['halo_shortfall']}, window "
+                      f"levels {til['window_level_kernels']}")
+    if {"level": til["level_kernel_launches"],
+            "blocked": til["blocked_kernel_launches"]} != \
+            til["expected_launches"]:
+        failed.append(f"tiled launches {til['level_kernel_launches']} / "
+                      f"{til['blocked_kernel_launches']}, expected "
+                      f"{til['expected_launches']}")
+    if not eng["stats_equal"] or eng["counts"]["pairs"] != 64:
+        failed.append(f"engine stats {eng['counts']} differ from one device's")
+    if eng["match_err_px"] is None or not eng["match_err_px"] <= 1.0:
+        failed.append(f"engine match error {eng['match_err_px']} px")
+    if eng["level_kernel_launches"] < 1 or \
+            not str(eng["solve_device"]).startswith("cuda"):
+        failed.append(f"engine ran on {eng['solve_device']} with "
+                      f"{eng['level_kernel_launches']} launches")
+    # the float64 Schur solutions, and the float32 transforms of the mesh
+    # call, which may stand an ulp or two apart (7.6e-6 / 1.2e-4 px on the
+    # CPU at 9,604 sections)
+    for model, gate, gate32 in (("translation", 1e-6, 1e-5),
+                                ("affine", 1e-4, 2e-4)):
+        a = aln[model]
+        if not (a["zblock_sharded_vs_unsharded_float64_px"] <= gate
+                and a["zblock_sharded_vs_unsharded_px"] <= gate32):
+            failed.append(f"{model} z-block sharded "
+                          f"{a['zblock_sharded_vs_unsharded_float64_px']} px "
+                          f"(float64), {a['zblock_sharded_vs_unsharded_px']} "
+                          "px (transforms) from unsharded")
+        if not (a["zblock_sharded_vs_exact_px"] <= 0.01
+                and a["zblock_unsharded_vs_exact_px"] <= 0.01):
+            failed.append(f"{model} z-block off the exact solve")
+    # every sharded run within DIST_CG_GATE_PX of every one-device run, no
+    # further above the optimum than DIST_CG_EXCESS_GATE, and within the
+    # align phase's 0.01 px of the z-block solve
+    cg = aln["translation"]
+    if not (cg["cg_sharded_vs_single_px"] <= DIST_CG_GATE_PX
+            and cg["cg_sharded_objective_excess"] <= DIST_CG_EXCESS_GATE
+            and cg["cg_sharded_vs_zblock_px"] <= 0.01):
+        failed.append(f"sharded translation CG {cg['cg_sharded_vs_single_px']}"
+                      f" px from the one-device CG, objective excess "
+                      f"{cg['cg_sharded_objective_excess']}, "
+                      f"{cg['cg_sharded_vs_zblock_px']} px from z-block")
+    ratio = aln["affine"]["cg_sharded_objective_excess"] / AFFINE_CG_JAX_EXCESS
+    if not abs(ratio - 1.0) <= 0.1:
+        failed.append(f"sharded affine CG excess "
+                      f"{aln['affine']['cg_sharded_objective_excess']}")
+    if not (all(pod["host_lines"]) and pod["outputs_exactly_once"]
+            and pod["journals_disjoint"]
+            and pod["journal_pairs"] == [DIST_POD_PAIRS // 2] * 2):
+        failed.append(f"pod run incomplete: {pod}")
+    if not pod["mean_epe_px"] <= 0.5:
+        failed.append(f"pod flows: mean EPE {pod['mean_epe_px']} px")
+    if conc["refused"] or conc["flows_differing"]:
+        failed.append(f"concurrent threads: {conc['refused']} solves refused "
+                      f"({conc['first_refusal']}), {conc['flows_differing']} "
+                      "flows differ from the same solves made alone")
+    if failed:
+        fail("dist: " + "; ".join(failed))
+    launches = results.setdefault("launches", {})
+    for name in ("tvl1_level_solve", "tvl1_blocked_level_solve"):
+        launches[name] = launches.get(name, 0) + sum(
+            l[name] for l in (l_sched, l_tiled, l_eng))
 
 
 def main(argv=None) -> int:
@@ -3054,6 +3774,8 @@ def main(argv=None) -> int:
             phase_style2(results, tmp)
         if "align" in phases:
             phase_align(results, tmp)
+        if "dist" in phases:
+            phase_dist(results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -18,13 +18,16 @@ block-banded along z:
    Cholesky-factorised in one batched call, the separator (Schur) system
    S = A_SS - sum_k A_SI A_II^-1 A_IS is reduced over the blocks and solved
    by Cholesky, and the interiors back-substitute in one batched call.
+   With a mesh, the blocks are split over the ``pairs`` devices (padded
+   with identity blocks), each device factorises its own, their Schur
+   contributions are summed onto the first device in device order, the
+   reduced separator system is solved there once and copied back, and
+   every device back-substitutes its own interiors.
 
 Models: ``translation`` (1 parameter per section per component) and
 ``affine`` (3 parameters; the x- and y-rows of a 2x3 affine share the same
 per-edge coefficients (x, y, 1), so both components solve against ONE
 factorization with two right-hand sides).
-
-Single process: the blocks are not sharded over devices.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from optflow_tpu_torch.align.global_solve import (
     _identity,
     _rms,
 )
+from optflow_tpu_torch.dist.mesh import on_devices, pairs_axis_devices, sum_in_order
 from optflow_tpu_torch.utils.metrics import StageTimer
 
 
@@ -197,6 +201,7 @@ def solve_zblock_alignment(
     reg_lambda: float = 1e-3,
     device="cuda",
     timer: Optional[StageTimer] = None,
+    mesh=None,
 ) -> AlignmentResult:
     """Direct z-block Schur solve of the stack alignment problem.
 
@@ -204,6 +209,9 @@ def solve_zblock_alignment(
     model: "translation" or "affine".
     device: where the factorisations and solves run; the assembly is host
       numpy.
+    mesh: optional ``dist.mesh.PairMesh``; the blocks are split over its
+      ``pairs`` devices (the first takes ``device``'s place) and the Schur
+      contributions summed in device order.
     timer: collects the stages ``collect`` (edge arrays), ``assemble``
       (the dense system, host) and ``solve`` (upload, factorisations,
       solves, download; a device stage).
@@ -255,8 +263,14 @@ def solve_zblock_alignment(
     else:
         A_II[slots.blk[z0], diag0, diag0] += pin
 
-    with timer.device_stage("solve", device):
-        x_I, x_S = _schur_solve(A_II, A_IS, A_SS, r_I, r_S, device)
+    if mesh is not None:
+        devices = pairs_axis_devices(mesh)
+        with timer.device_stage("solve", devices[0]):
+            x_I, x_S = _schur_solve_sharded(A_II, A_IS, A_SS, r_I, r_S,
+                                            devices)
+    else:
+        with timer.device_stage("solve", device):
+            x_I, x_S = _schur_solve(A_II, A_IS, A_SS, r_I, r_S, device)
 
     # --- scatter back to (Z, 2, 3) transforms ------------------------------
     rows = slots.off[:, None] + np.arange(k)  # (Z, k) in z order
@@ -305,3 +319,56 @@ def _schur_solve(A_II, A_IS, A_SS, r_I, r_S, device="cuda"):
         bsub = r_i
     x_i = torch.cholesky_solve(bsub, chol)
     return x_i.cpu().numpy(), x_s.cpu().numpy()
+
+
+def _schur_solve_sharded(A_II, A_IS, A_SS, r_I, r_S, devices):
+    """:func:`_schur_solve` with the blocks split over ``devices``: the block
+    count is padded with identity blocks (zero coupling, zero right-hand
+    side) to a multiple of the device count; each device factorises its
+    contiguous share and forms its Schur contributions; these are summed
+    onto the first device in device order, where the reduced separator
+    system is solved once; the separator solution is copied to every
+    device, which back-substitutes its own interiors. All in
+    ``_SOLVE_DTYPE``. Returns host arrays as :func:`_schur_solve` does."""
+    nb, ni = A_II.shape[:2]
+    nss = A_SS.shape[0]
+    n = len(devices)
+    per = -(-nb // n)
+    pad = per * n - nb
+    if pad:
+        A_II = np.concatenate([A_II, np.tile(np.eye(ni), (pad, 1, 1))])
+        A_IS = np.concatenate([A_IS, np.zeros((pad,) + A_IS.shape[1:])])
+        r_I = np.concatenate([r_I, np.zeros((pad,) + r_I.shape[1:])])
+    shares = [slice(d * per, (d + 1) * per) for d in range(n)]
+
+    def put(a, dev):
+        return torch.as_tensor(a, dtype=_SOLVE_DTYPE).to(dev)
+
+    def local(dev, share):
+        a_ii, a_is, r_i = (put(t[share], dev) for t in (A_II, A_IS, r_I))
+        chol = torch.linalg.cholesky(a_ii)
+        X = torch.cholesky_solve(torch.cat([a_is, r_i], dim=2), chol)
+        s_con = torch.einsum("bij,bik->jk", a_is, X[:, :, :nss])
+        r_con = torch.einsum("bij,bik->jk", a_is, X[:, :, nss:])
+        return chol, a_is, r_i, s_con, r_con
+
+    parts = on_devices(local, devices, shares)
+    first = devices[0]
+    r_s = put(r_S, first)
+    if nss:
+        s_con = sum_in_order([p[3] for p in parts])
+        r_con = sum_in_order([p[4] for p in parts])
+        x_s = torch.cholesky_solve(
+            r_s - r_con, torch.linalg.cholesky(put(A_SS, first) - s_con))
+    else:
+        x_s = r_s
+
+    def back(dev, part):
+        chol, a_is, r_i = part[:3]
+        bsub = r_i
+        if nss:
+            bsub = r_i - torch.einsum("bij,jc->bic", a_is, x_s.to(dev))
+        return torch.cholesky_solve(bsub, chol).cpu().numpy()
+
+    x_i = np.concatenate(on_devices(back, devices, parts))[:nb]
+    return x_i, x_s.cpu().numpy()

@@ -276,6 +276,7 @@ int tvl1_blocked_level_solve_per_chunk(
   pc::ChunkKernel kernel = k == 16  ? pc::blocked_chunk_kernel<pc::TILE_W + 32>
                            : k == 8 ? pc::blocked_chunk_kernel<pc::TILE_W + 16>
                                     : pc::blocked_chunk_kernel<0>;
+  std::lock_guard<std::mutex> lock(g_smem_attr_mutex);
   CHECK_CALL(cudaFuncSetAttribute((const void*)kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bytes));

@@ -211,6 +211,7 @@ int tvl1_chunk(const float* ro, const float* state, float* out, float* errs,
     return (int)cudaErrorInvalidValue;
   if (one_block) {
     size_t bytes = (size_t)WINDOW_PLANES * h * w * sizeof(float);
+    std::lock_guard<std::mutex> lock(g_smem_attr_mutex);
     CHECK_CALL(cudaFuncSetAttribute(
         chunk_one_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes));

@@ -24,6 +24,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr float GRAD_EPS = 1.192092896e-07f;
@@ -31,8 +34,17 @@ constexpr float GRAD_EPS = 1.192092896e-07f;
 // What the library's host functions have put on a stream since it was
 // loaded: [0] kernel launches, [1] memsets and copies. Each is counted where
 // it is enqueued, so a caller reads the launches of one call as a difference
-// (`tvl1_enqueued`, below) without tracing the card.
-long long g_enqueued[2] = {0, 0};
+// (`tvl1_enqueued`, below) without tracing the card. Atomic: one host thread
+// per device may enqueue at once.
+std::atomic<long long> g_enqueued[2]{};
+
+// Held by a host function from its cudaFuncSetAttribute of a shared memory
+// size that depends on the call to the last launch that uses that size. The
+// attribute belongs to the kernel, not to the call: without the lock, a
+// thread solving another shape could lower it between this thread's setting
+// and its occupancy query or launch, and the launch would be refused
+// (cudaErrorLaunchOutOfResources).
+std::mutex g_smem_attr_mutex;
 
 // After a `<<<...>>>` launch.
 #define CHECK_LAUNCH()                     \
@@ -411,6 +423,6 @@ __device__ __forceinline__ void window_iterate_sums(
 // enqueued since it was loaded. Every library that includes this header
 // exports it under the same name.
 extern "C" void tvl1_enqueued(long long* out) {
-  out[0] = g_enqueued[0];
-  out[1] = g_enqueued[1];
+  out[0] = g_enqueued[0].load();
+  out[1] = g_enqueued[1].load();
 }

@@ -427,6 +427,7 @@ int level_solve(const LevelArgs& a, void* stream_ptr) {
 
   const size_t bytes = (size_t)WINDOW_PLANES * (tile_height(a.h) + 2 * HALO) *
                        WIN_W * sizeof(float);
+  std::lock_guard<std::mutex> lock(g_smem_attr_mutex);
   CHECK_CALL(cudaFuncSetAttribute(level_kernel<EXACT>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bytes));

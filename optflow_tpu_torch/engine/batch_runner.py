@@ -4,15 +4,18 @@ The reference's pair loop is strictly sequential — one GPU solve per pair
 (src/optflow.cpp:87-171). Here pairs whose frames, ROI set, solver
 parameters, and output type match are grouped, their ROI slices stacked
 along a leading batch dimension, and solved in a single batched
-coarse-to-fine solve on one explicit device. Match accumulation and upload
-batching preserve the reference's ordering and semantics.
+coarse-to-fine solve on one explicit device, or split over the ``pairs``
+devices of a mesh (``dist/mesh.py``), one host thread each. Match
+accumulation and upload batching preserve the reference's ordering and
+semantics.
 
-``random_points`` groups take the device-resident path
+``random_points`` groups on one device take the device-resident path
 (engine/device_group.py): frames uploaded once, ROI strips sliced on the
 device, one batched solve, post-processing and sampling on the device, one
 packed readback a few groups behind the dispatch front. ``map``/``flow``
-groups (and ``device_sample: false``) take the host path, which reads the
-full fields back and writes TIFFs / samples on the host.
+groups, ``device_sample: false`` and every group of a mesh with more than
+one pairs device take the host path, which reads the full fields back and
+writes TIFFs / samples on the host.
 
 Feature pre-alignment pairs DO batch: the group's unique frames are
 detected and described once, matching and RANSAC run per pair, frame 1 of
@@ -42,6 +45,11 @@ import torch
 
 from optflow_tpu_torch.core.config import JobConfig, TVL1Params, resolve_features
 from optflow_tpu_torch.core.imgio import ImageReadError, write_float_tiff
+from optflow_tpu_torch.dist.mesh import (
+    make_pair_mesh,
+    on_shares,
+    pairs_axis_devices,
+)
 from optflow_tpu_torch.engine import device_group as dg
 from optflow_tpu_torch.engine.features_glue import is_default_aligner
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
@@ -66,18 +74,41 @@ from optflow_tpu_torch.sinks.http import make_sink
 from optflow_tpu_torch.utils.metrics import StageTimer
 
 
-def _batched_solver(params: TVL1Params, mode: str):
+def _batched_solver(params: TVL1Params, mode: str, devices=None):
     """Batched ROI solve + flow post-processing for the host path. ``mode``
     follows engine.pair._solve_mode; the features_* modes take the pairs'
     (N, 2, 3) affines and reproduce solve_wrapper's map composition
-    (src/optflow.cpp:411-443)."""
+    (src/optflow.cpp:411-443). With several ``devices`` the batch is split
+    into one sub-batch a device, each solved from a thread of its own, and
+    the results come back to the inputs' device."""
 
     def f(i0s: torch.Tensor, i1s: torch.Tensor,
           affines: Optional[torch.Tensor] = None):
         flow = tvl1_flow_batched(i0s, i1s, params)
         return postprocess_flow(flow, i0s, i1s, mode, affines)
 
-    return f
+    if devices is None or len(devices) == 1:
+        return f
+
+    def sharded(i0s: torch.Tensor, i1s: torch.Tensor,
+                affines: Optional[torch.Tensor] = None):
+        outs = on_shares(lambda dev, a, b, af: f(a, b, af), devices,
+                         i0s, i1s, affines)
+        return tuple(torch.cat([o[k].to(i0s.device) for o in outs])
+                     for k in range(3))
+
+    return sharded
+
+
+def _job_devices(device: torch.device, mesh) -> list:
+    """The pairs devices a job solves on: the mesh's; else, for the
+    unindexed ``cuda`` with more than one visible card, a pairs mesh over
+    all of them; else ``device`` alone (an indexed card, e.g. one process
+    pinned to each card, stays on its card)."""
+    if mesh is None and device.type == "cuda" and device.index is None \
+            and torch.cuda.device_count() > 1:
+        mesh = make_pair_mesh()
+    return pairs_axis_devices(mesh) if mesh is not None else [device]
 
 
 def _prealign_group(frames_dev: torch.Tensor, f1_idx, f0_idx, fparams):
@@ -191,6 +222,7 @@ def run_job_batched(
     write_outputs: bool = True,
     pair_batch: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> Dict:
     """Batched equivalent of runner.run_job (same stats contract, plus
     ``solve_device`` and ``detected_frames``, the frames that went through
@@ -203,14 +235,25 @@ def run_job_batched(
     it) both let feature groups batch through the device aligner; any other aligner is a host function and
     sends its pairs down the sequential path, where ``None`` means the
     identity — the JAX package's behaviour, kept so that the same call
-    gives the same stats."""
+    gives the same stats.
+
+    ``mesh`` (``dist.mesh.PairMesh``): group solves split data-parallel over
+    its ``pairs`` devices (``pair_batch`` rounded up to a multiple of them),
+    and its first pairs device takes ``device``'s place (pre-alignment, the
+    sequential path). With the unindexed ``cuda`` device, more than one
+    visible card and no mesh, a pairs mesh over all of them is built; an
+    indexed card (``cuda:1``) is kept."""
     cfg = JobConfig(args)
-    device = torch.device(device)
+    pairs_devices = _job_devices(torch.device(device), mesh)
+    device = pairs_devices[0]
+    n_shards = len(pairs_devices)
     # a caller-supplied host aligner forces feature pairs onto the
     # sequential path so its behavior is preserved
     can_batch_features = aligner is None or is_default_aligner(aligner)
     if pair_batch is None:
         pair_batch = int(args.get("pair_batch", 8))
+    if n_shards > 1:
+        pair_batch = -(-pair_batch // n_shards) * n_shards
     prefetch = None
     if loader is None and args.get("prefetch", True):
         prefetch = make_prefetch_loader(args)
@@ -276,7 +319,11 @@ def run_job_batched(
         output_type = cfg.output_type(t0.im_data)
         features = _wants_features(t0.im_data, args, t0.rois)
         mode = _solve_mode(features, output_type)
-        if output_type == "random_points" and args.get("device_sample", True):
+        if (
+            output_type == "random_points"
+            and n_shards == 1
+            and args.get("device_sample", True)
+        ):
             # random_points needs nothing full-sized on the host: the
             # device-resident pipeline uploads unique frames once and
             # reads back only sampled points, a few groups behind the
@@ -301,7 +348,7 @@ def run_job_batched(
             stats["detected_frames"] += len(uniq)
             _report_alignment(res, len(tasks), cfg.debug)
             timer.read_device_events()
-        solver = _batched_solver(params, mode)
+        solver = _batched_solver(params, mode, pairs_devices)
         for roi_key in sorted(t0.rois.keys()):
             roi: Roi = t0.rois[roi_key]
             with timer.device_stage("h2d", device):

@@ -8,16 +8,23 @@ an edit rebuilds and an unchanged source is reused. A failed build raises
 with the compiler's output. :func:`build_libraries` compiles several sources
 at once, one ``nvcc`` process each. :func:`enqueued` reads what the loaded
 libraries have put on the card's streams.
+
+The wrappers are called from one thread per device (``dist/``): every build
+and load, and each wrapper's first binding of its library, holds :data:`lock`;
+:class:`counted_launches` keeps a wrapper's launch count under a lock and
+what its last launch left per thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, List, Tuple
 
@@ -31,6 +38,10 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Held around every build and load, and by each wrapper while it binds its
+# library: two threads' first calls would otherwise start two nvcc writing the
+# same library. Reentrant: a wrapper's binding loads under it.
+lock = threading.RLock()
 # seconds the last real compilation of each stem took (absent when the
 # library was already built)
 build_seconds: Dict[str, float] = {}
@@ -63,43 +74,46 @@ def build_libraries(stems: Iterable[str]) -> None:
     """Compile every library of ``stems`` that is not built yet, all ``nvcc``
     processes started together. Raises ``RuntimeError`` with nvcc's output
     when a build fails."""
-    started: List[Tuple[str, pathlib.Path, pathlib.Path, list, subprocess.Popen]] = []
-    t0 = time.perf_counter()
-    for stem in stems:
-        out = library_path(stem)
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{stem}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        started.append((stem, out, tmp, cmd, proc))
-    failures = []
-    for stem, out, tmp, cmd, proc in started:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-            )
-            continue
-        os.replace(tmp, out)
-        build_seconds[stem] = time.perf_counter() - t0
-        # registers / shared memory / spills of every kernel, for the reader
-        out.with_suffix(".log").write_text(log)
-    if failures:
-        raise RuntimeError("\n".join(failures))
+    with lock:
+        started: List[Tuple[str, pathlib.Path, pathlib.Path, list,
+                            subprocess.Popen]] = []
+        t0 = time.perf_counter()
+        for stem in stems:
+            out = library_path(stem)
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{stem}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            started.append((stem, out, tmp, cmd, proc))
+        failures = []
+        for stem, out, tmp, cmd, proc in started:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+                )
+                continue
+            os.replace(tmp, out)
+            build_seconds[stem] = time.perf_counter() - t0
+            # registers / shared memory / spills of every kernel, for the
+            # reader
+            out.with_suffix(".log").write_text(log)
+        if failures:
+            raise RuntimeError("\n".join(failures))
 
 
 def load_library(stem: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<stem>.cu``, compiled if it is not built
     yet. Raises ``RuntimeError`` with nvcc's output when the build fails."""
-    lib = _loaded.get(stem)
-    if lib is None:
-        build_libraries([stem])
-        lib = _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
+    with lock:
+        lib = _loaded.get(stem)
+        if lib is None:
+            build_libraries([stem])
+            lib = _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
     return lib
 
 
@@ -110,7 +124,9 @@ def enqueued() -> Tuple[int, int]:
     The difference across a call is what that call put on the card; PyTorch's
     own operations are not in it."""
     kernels = memops = 0
-    for lib in _loaded.values():
+    with lock:
+        libs = list(_loaded.values())
+    for lib in libs:
         fn = getattr(lib, "tvl1_enqueued", None)
         if fn is None:  # a library without the shared header
             continue
@@ -119,3 +135,45 @@ def enqueued() -> Tuple[int, int]:
         kernels += out[0]
         memops += out[1]
     return kernels, memops
+
+
+class counted_launches:
+    """Decorator of a kernel wrapper. ``wrapper.launches`` counts the launches
+    of every thread; the wrapper adds one with :meth:`count_launch` where it
+    launches its kernel, under a lock (``launches = 0`` resets it).
+    ``last_work`` and ``last_steps`` are what the calling thread's last launch
+    left (``None`` before its first): one thread per device must not read
+    another's."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self._lock = threading.Lock()
+        self._launches = 0
+        self._last = threading.local()
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    @property
+    def launches(self) -> int:
+        with self._lock:
+            return self._launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        with self._lock:
+            self._launches = value
+
+    def count_launch(self, work=None, steps=None) -> None:
+        with self._lock:
+            self._launches += 1
+        self._last.work = work
+        self._last.steps = steps
+
+    @property
+    def last_work(self):
+        return getattr(self._last, "work", None)
+
+    @property
+    def last_steps(self):
+        return getattr(self._last, "steps", None)

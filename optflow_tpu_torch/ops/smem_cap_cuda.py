@@ -48,19 +48,20 @@ class DeviceSharedMemory(NamedTuple):
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        lib = _build.load_library("smem_cap")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.smem_fill_mean.argtypes = [ctypes.c_longlong, ptr, ptr, i32, i32,
-                                       i32, ptr, ptr]
-        lib.smem_fill_mean.restype = i32
-        lib.smem_occupancy.argtypes = [ctypes.c_longlong, i32]
-        lib.smem_occupancy.restype = i32
-        lib.smem_device_attrs.argtypes = [ptr]
-        lib.smem_device_attrs.restype = i32
-        lib.smem_cap_error_string.argtypes = [i32]
-        lib.smem_cap_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _build.lock:
+        if _lib is None:
+            lib = _build.load_library("smem_cap")
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.smem_fill_mean.argtypes = [ctypes.c_longlong, ptr, ptr, i32,
+                                           i32, i32, ptr, ptr]
+            lib.smem_fill_mean.restype = i32
+            lib.smem_occupancy.argtypes = [ctypes.c_longlong, i32]
+            lib.smem_occupancy.restype = i32
+            lib.smem_device_attrs.argtypes = [ptr]
+            lib.smem_device_attrs.restype = i32
+            lib.smem_cap_error_string.argtypes = [i32]
+            lib.smem_cap_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 
@@ -96,6 +97,7 @@ def smem_fill_mean_plain(
     return ProbeStatus(0, 0, 0), mean.repeat(blocks)
 
 
+@_build.counted_launches
 def smem_fill_mean(
     n_bytes: int,
     x: Union[float, torch.Tensor],
@@ -142,16 +144,13 @@ def smem_fill_mean(
         )
     result = ProbeStatus(*status)
     if result.launch == 0:
-        smem_fill_mean.launches += 1
+        smem_fill_mean.count_launch()
     if result.launch == 0 and result.sync != 0:
         # the kernel started and failed: a fault, not a refusal
         raise RuntimeError(
             f"smem_fill_mean: the kernel failed: {error_string(result.sync)}"
         )
     return result, (means if result.ok else None)
-
-
-smem_fill_mean.launches = 0
 
 
 def occupancy(n_bytes: int, threads: int = 1024,

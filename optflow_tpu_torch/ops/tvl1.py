@@ -32,6 +32,7 @@ hand-written level kernel (ops/tvl1_cuda.py); everything runs eagerly under
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -221,16 +222,17 @@ def tvl1_flow_level(
 # level_solver(i0, i1, u1, u2, params, u3) -> (u1, u2, u3, iters) on (N, H, W)
 LevelSolver = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
 
-_last_iteration_stats: List[Tuple[Tuple[int, int], torch.Tensor]] = []
+# per thread: the distributed solves run one thread per device
+_last_iteration_stats = threading.local()
 
 
 def get_last_iteration_stats() -> List[Tuple[Tuple[int, int], torch.Tensor]]:
     """Per-level ``((h, w), iterations run per image (N,) int32)`` of the
-    most recent :func:`solve_pyramid` call, coarsest level first. One count
-    = one primal-dual iteration over that level's h x w pixels, summed over
-    the warps. The tensors stay on the solve's device: reading them
-    synchronises with the solve."""
-    return list(_last_iteration_stats)
+    most recent :func:`solve_pyramid` call on the calling thread, coarsest
+    level first. One count = one primal-dual iteration over that level's
+    h x w pixels, summed over the warps. The tensors stay on the solve's
+    device: reading them synchronises with the solve."""
+    return list(getattr(_last_iteration_stats, "stats", []))
 
 
 def solve_pyramid(
@@ -244,7 +246,6 @@ def solve_pyramid(
     path: both pyramids built once from the stacked ``(2N, H, W)`` frames,
     levels solved coarse to fine, flow upscaled by 1/scale_step between
     them. Returns the ``(N, H, W, 2)`` flow, ``[..., 0]`` = x."""
-    global _last_iteration_stats
     n, h, w = i0s.shape
     shapes = pyramid_shapes(h, w, params.nscales, params.scale_step)
     with torch.no_grad():
@@ -278,7 +279,7 @@ def solve_pyramid(
                     u3 = resize_bilinear(u3, shapes[s - 1])
                 else:
                     u3 = torch.zeros_like(u1)
-        _last_iteration_stats = stats
+        _last_iteration_stats.stats = stats
         return torch.stack([u1, u2], dim=-1)
 
 

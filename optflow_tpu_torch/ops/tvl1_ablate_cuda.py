@@ -65,21 +65,22 @@ def launches_per_call(m: int) -> int:
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        lib = _build.load_library("tvl1_ablate")
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tvl1_ablate.argtypes = [ptr] * 6 + [i32] * 8 + [f32] * 3 + [ptr]
-        lib.tvl1_ablate.restype = i32
-        lib.tvl1_ablate_error_string.argtypes = [i32]
-        lib.tvl1_ablate_error_string.restype = ctypes.c_char_p
-        built = (lib.tvl1_ablate_k(), lib.tvl1_ablate_tile_h(),
-                 lib.tvl1_ablate_tile_w())
-        if built != (ABLATE_K, TILE_H, TILE_W):
-            raise RuntimeError(
-                f"csrc/tvl1_ablate.cu was built with (k, tile) {built}, the "
-                f"wrapper expects {(ABLATE_K, TILE_H, TILE_W)}"
-            )
-        _lib = lib
+    with _build.lock:
+        if _lib is None:
+            lib = _build.load_library("tvl1_ablate")
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.tvl1_ablate.argtypes = [ptr] * 6 + [i32] * 8 + [f32] * 3 + [ptr]
+            lib.tvl1_ablate.restype = i32
+            lib.tvl1_ablate_error_string.argtypes = [i32]
+            lib.tvl1_ablate_error_string.restype = ctypes.c_char_p
+            built = (lib.tvl1_ablate_k(), lib.tvl1_ablate_tile_h(),
+                     lib.tvl1_ablate_tile_w())
+            if built != (ABLATE_K, TILE_H, TILE_W):
+                raise RuntimeError(
+                    f"csrc/tvl1_ablate.cu was built with (k, tile) {built}, the "
+                    f"wrapper expects {(ABLATE_K, TILE_H, TILE_W)}"
+                )
+            _lib = lib
     return _lib
 
 
@@ -189,6 +190,7 @@ def tvl1_ablate_plain(
         return out, e[:, None]
 
 
+@_build.counted_launches
 def tvl1_ablate_chunks(
     ro: torch.Tensor,  # (N, 3, HP, WP) float32: i1wx, i1wy, rho_c
     state: torch.Tensor,  # (N, 6, HP, WP) float32
@@ -246,12 +248,10 @@ def tvl1_ablate_chunks(
             f"tvl1_ablate: CUDA error {code}: "
             f"{lib.tvl1_ablate_error_string(code).decode()}"
         )
-    tvl1_ablate_chunks.launches += 1
+    tvl1_ablate_chunks.count_launch()
     if padded:
         full = state.clone()
         full[:, :, :h, :w] = out
         out = full
     return out, errs
 
-
-tvl1_ablate_chunks.launches = 0

@@ -39,24 +39,25 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        lib = _build.load_library("tvl1_blocked")
-        bind_grid(lib, "tvl1_blocked_level_solve", extra_ints=1)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tvl1_blocked_level_solve_per_chunk.argtypes = (
-            [ptr] * 10 + [i32] * 6 + [f32] * 4 + [ptr]
-        )
-        lib.tvl1_blocked_level_solve_per_chunk.restype = i32
-        lib.tvl1_blocked_per_chunk_err_floats.argtypes = [i32] * 6
-        lib.tvl1_blocked_per_chunk_err_floats.restype = ctypes.c_longlong
-        lib.tvl1_blocked_error_string.argtypes = [i32]
-        lib.tvl1_blocked_error_string.restype = ctypes.c_char_p
-        if lib.tvl1_blocked_max_k() != BLOCKED_K:
-            raise RuntimeError(
-                f"csrc/tvl1_blocked.cu allows k <= {lib.tvl1_blocked_max_k()}"
-                f", the wrapper expects {BLOCKED_K}"
+    with _build.lock:
+        if _lib is None:
+            lib = _build.load_library("tvl1_blocked")
+            bind_grid(lib, "tvl1_blocked_level_solve", extra_ints=1)
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.tvl1_blocked_level_solve_per_chunk.argtypes = (
+                [ptr] * 10 + [i32] * 6 + [f32] * 4 + [ptr]
             )
-        _lib = lib
+            lib.tvl1_blocked_level_solve_per_chunk.restype = i32
+            lib.tvl1_blocked_per_chunk_err_floats.argtypes = [i32] * 6
+            lib.tvl1_blocked_per_chunk_err_floats.restype = ctypes.c_longlong
+            lib.tvl1_blocked_error_string.argtypes = [i32]
+            lib.tvl1_blocked_error_string.restype = ctypes.c_char_p
+            if lib.tvl1_blocked_max_k() != BLOCKED_K:
+                raise RuntimeError(
+                    f"csrc/tvl1_blocked.cu allows k <= {lib.tvl1_blocked_max_k()}"
+                    f", the wrapper expects {BLOCKED_K}"
+                )
+            _lib = lib
     return _lib
 
 
@@ -85,6 +86,7 @@ def tvl1_blocked_level_solve_plain(
     return a, b, iters
 
 
+@_build.counted_launches
 def tvl1_blocked_level_solve(
     i0: torch.Tensor,  # (N, H, W) float32
     i1: torch.Tensor,
@@ -105,9 +107,9 @@ def tvl1_blocked_level_solve(
 
     CUDA tensors launch the kernel on the current stream without
     synchronising (``tvl1_blocked_level_solve.launches`` counts these calls;
-    ``last_work`` and ``last_steps`` keep what the last call computed and the
-    steps it took, as ``tvl1_level_solve``'s do) or raise; CPU tensors take
-    the plain version."""
+    ``last_work`` and ``last_steps`` keep what the calling thread's last call
+    computed and the steps it took, as ``tvl1_level_solve``'s do) or raise;
+    CPU tensors take the plain version."""
     if not i0.is_cuda:
         return tvl1_blocked_level_solve_plain(i0, i1, u1, u2, params, k)
     _check_k(k)
@@ -115,15 +117,8 @@ def tvl1_blocked_level_solve(
         _library(), "tvl1_blocked_level_solve", i0, i1, u1, u2, params,
         int(k), int(k),
     )
-    tvl1_blocked_level_solve.launches += 1
-    tvl1_blocked_level_solve.last_work = work
-    tvl1_blocked_level_solve.last_steps = steps
+    tvl1_blocked_level_solve.count_launch(work, steps)
     return u1_out, u2_out, iters
-
-
-tvl1_blocked_level_solve.launches = 0
-tvl1_blocked_level_solve.last_work = None
-tvl1_blocked_level_solve.last_steps = None
 
 
 def tvl1_blocked_level_solve_per_chunk(

@@ -73,26 +73,27 @@ def chunk_geometry(h: int, w: int) -> ChunkGeometry:
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        lib = _build.load_library("tvl1_chunk")
-        bind_grid(lib, "tvl1_chunk_level_solve", extra_ints=1)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tvl1_chunk.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 4 + [ptr]
-        lib.tvl1_chunk.restype = i32
-        lib.tvl1_chunk_sweep.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [f32] * 4 + [ptr]
-        )
-        lib.tvl1_chunk_sweep.restype = i32
-        lib.tvl1_chunk_error_string.argtypes = [i32]
-        lib.tvl1_chunk_error_string.restype = ctypes.c_char_p
-        built = (lib.tvl1_chunk_k(), lib.tvl1_chunk_tile_h(),
-                 lib.tvl1_chunk_tile_w())
-        if built != (CHUNK_K, TILE_H, TILE_W):
-            raise RuntimeError(
-                f"csrc/tvl1_chunk.cu was built with (k, tile) {built}, the "
-                f"wrapper expects {(CHUNK_K, TILE_H, TILE_W)}"
+    with _build.lock:
+        if _lib is None:
+            lib = _build.load_library("tvl1_chunk")
+            bind_grid(lib, "tvl1_chunk_level_solve", extra_ints=1)
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.tvl1_chunk.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 4 + [ptr]
+            lib.tvl1_chunk.restype = i32
+            lib.tvl1_chunk_sweep.argtypes = (
+                [ptr] * 6 + [i32] * 5 + [f32] * 4 + [ptr]
             )
-        _lib = lib
+            lib.tvl1_chunk_sweep.restype = i32
+            lib.tvl1_chunk_error_string.argtypes = [i32]
+            lib.tvl1_chunk_error_string.restype = ctypes.c_char_p
+            built = (lib.tvl1_chunk_k(), lib.tvl1_chunk_tile_h(),
+                     lib.tvl1_chunk_tile_w())
+            if built != (CHUNK_K, TILE_H, TILE_W):
+                raise RuntimeError(
+                    f"csrc/tvl1_chunk.cu was built with (k, tile) {built}, the "
+                    f"wrapper expects {(CHUNK_K, TILE_H, TILE_W)}"
+                )
+            _lib = lib
     return _lib
 
 
@@ -191,6 +192,7 @@ def tvl1_chunk_plain(
         return new_state, _tile_sums(du2, geo)
 
 
+@_build.counted_launches
 def tvl1_chunk(
     ro: torch.Tensor,  # (N, 3, H, W) float32: i1wx, i1wy, rho_c
     state: torch.Tensor,  # (N, 6, H, W) float32: u1, u2, p11, p12, p21, p22
@@ -239,11 +241,8 @@ def tvl1_chunk(
             f"tvl1_chunk: CUDA error {code}: "
             f"{lib.tvl1_chunk_error_string(code).decode()}"
         )
-    tvl1_chunk.launches += 1
+    tvl1_chunk.count_launch()
     return out, errs
-
-
-tvl1_chunk.launches = 0
 
 
 def _check_sweep(iterations: int) -> None:
@@ -280,6 +279,7 @@ def tvl1_chunk_sweep_plain(
     return state, errs
 
 
+@_build.counted_launches
 def tvl1_chunk_sweep(
     ro: torch.Tensor,  # (N, 3, H, W) float32: i1wx, i1wy, rho_c
     state: torch.Tensor,  # (N, 6, H, W) float32
@@ -333,11 +333,8 @@ def tvl1_chunk_sweep(
             f"tvl1_chunk_sweep: CUDA error {code}: "
             f"{lib.tvl1_chunk_error_string(code).decode()}"
         )
-    tvl1_chunk_sweep.launches += 1
+    tvl1_chunk_sweep.count_launch()
     return out, errs[(launches - 1) & 1]
-
-
-tvl1_chunk_sweep.launches = 0
 
 
 def level_exit_every(h: int, w: int) -> int:
@@ -362,6 +359,7 @@ def tvl1_chunk_level_solve_plain(
     return a, b, iters
 
 
+@_build.counted_launches
 def tvl1_chunk_level_solve(
     i0: torch.Tensor,  # (N, H, W) float32
     i1: torch.Tensor,
@@ -391,15 +389,8 @@ def tvl1_chunk_level_solve(
         _library(), "tvl1_chunk_level_solve", i0, i1, u1, u2, params,
         level_exit_every(h, w), int(chunk_geometry(h, w).one_block),
     )
-    tvl1_chunk_level_solve.launches += 1
-    tvl1_chunk_level_solve.last_work = work
-    tvl1_chunk_level_solve.last_steps = steps
+    tvl1_chunk_level_solve.count_launch(work, steps)
     return u1_out, u2_out, iters
-
-
-tvl1_chunk_level_solve.launches = 0
-tvl1_chunk_level_solve.last_work = None
-tvl1_chunk_level_solve.last_steps = None
 
 
 def tvl1_flow_level_cuda_batched(

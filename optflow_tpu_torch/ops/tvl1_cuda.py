@@ -57,10 +57,11 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _library() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        lib = _build.load_library("tvl1_level")
-        bind_grid(lib, "tvl1_level_solve", extra_ints=0)
-        _lib = lib
+    with _build.lock:
+        if _lib is None:
+            lib = _build.load_library("tvl1_level")
+            bind_grid(lib, "tvl1_level_solve", extra_ints=0)
+            _lib = lib
     return _lib
 
 
@@ -319,6 +320,7 @@ def launch_grid(lib: ctypes.CDLL, entry: str, i0, i1, u1, u2,
     return u1_out, u2_out, counts[0], counts[1:], tables[4 * n:]
 
 
+@_build.counted_launches
 def tvl1_level_solve(
     i0: torch.Tensor,  # (N, H, W) float32
     i1: torch.Tensor,
@@ -335,26 +337,20 @@ def tvl1_level_solve(
     the iterations each image ran, ``(N,)`` int32, summed over the sweeps.
 
     CUDA tensors launch the kernel on the current stream without
-    synchronising (``tvl1_level_solve.launches`` counts these calls;
-    ``tvl1_level_solve.last_work`` keeps, on the device, what the last call
-    computed per image, speculation and replays included: ``(2, N)`` int32 of
-    iterations and chunks; ``last_steps``, int32, the grid-wide steps it
-    took, the blocks of its grid, and per step the images that ran in it, a 0
-    ending each sweep) or raise; CPU tensors take the plain version."""
+    synchronising (``tvl1_level_solve.launches`` counts these calls in every
+    thread; ``tvl1_level_solve.last_work`` keeps, on the device, what the
+    calling thread's last call computed per image, speculation and replays
+    included: ``(2, N)`` int32 of iterations and chunks; ``last_steps``,
+    int32, the grid-wide steps it took, the blocks of its grid, and per step
+    the images that ran in it, a 0 ending each sweep) or raise; CPU tensors
+    take the plain version."""
     if not i0.is_cuda:
         return tvl1_level_solve_plain(i0, i1, u1, u2, params)
     u1_out, u2_out, iters, work, steps = launch_grid(
         _library(), "tvl1_level_solve", i0, i1, u1, u2, params, 1
     )
-    tvl1_level_solve.launches += 1
-    tvl1_level_solve.last_work = work
-    tvl1_level_solve.last_steps = steps
+    tvl1_level_solve.count_launch(work, steps)
     return u1_out, u2_out, iters
-
-
-tvl1_level_solve.launches = 0
-tvl1_level_solve.last_work = None
-tvl1_level_solve.last_steps = None
 
 
 # Padded pixels above which a level goes to the blocked kernel: the JAX

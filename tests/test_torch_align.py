@@ -1,7 +1,7 @@
 """The port's global alignment and style 2 against the JAX package's, on the
 CPU: the edge arrays, the z-block assembly, the CG and z-block solves on the
-cases of tests/test_align.py (the sharded ones wait for the port's
-distribution), the sampler and the upsampling style 2 uses, the style-2 job,
+cases of tests/test_align.py (the sharded ones are in
+tests/test_torch_dist.py), the sampler and the upsampling style 2 uses, the style-2 job,
 both CLIs, and the gen -> solve -> convert -> align loop. The same seeded
 numpy inputs go through both packages; tolerances are stated per test."""
 

@@ -39,6 +39,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch.sinks.render_client\n"
         "import optflow_tpu_torch.tools.gen_pairs\n"
         "import optflow_tpu_torch.tools.upload_matches\n"
+        "import optflow_tpu_torch.dist\n"
+        "import optflow_tpu_torch.dist.mesh\n"
+        "import optflow_tpu_torch.dist.scheduler\n"
+        "import optflow_tpu_torch.dist.tiled\n"
+        "import optflow_tpu_torch.align.distributed\n"
+        "import optflow_tpu_torch.cli.run_pod\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'optflow_tpu' or "
         "m.startswith('optflow_tpu.'))\n"
@@ -74,7 +80,9 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "ops/tvl1_ablate_cuda.py", "ops/smem_cap_cuda.py",
             "align/global_solve.py", "align/zblock.py",
             "align/average_flow.py", "sinks/render_client.py",
-            "tools/gen_pairs.py", "tools/upload_matches.py"} <= rel
+            "tools/gen_pairs.py", "tools/upload_matches.py",
+            "dist/__init__.py", "dist/mesh.py", "dist/scheduler.py",
+            "dist/tiled.py", "align/distributed.py", "cli/run_pod.py"} <= rel
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -110,6 +118,7 @@ def test_entry_points_default_to_the_gpu():
     from optflow_tpu_torch import convert
     from optflow_tpu_torch.align import average_flow, global_solve, zblock
     from optflow_tpu_torch.cli import main as cli
+    from optflow_tpu_torch.cli import run_pod
     from optflow_tpu_torch.engine import (
         batch_runner,
         features_glue,
@@ -132,7 +141,7 @@ def test_entry_points_default_to_the_gpu():
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__name__
     for main in (cli.main, cli._align_main, kernel_ablate.main,
-                 smem_cap.main):
+                 smem_cap.main, run_pod.main):
         assert 'default="cuda"' in inspect.getsource(main)
 
 
