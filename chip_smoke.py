@@ -46,13 +46,18 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            timed in turns old, new, new, old); the chunk kernel's level
            entry, also against the level loop it replaced (PyTorch warp
            and the sweep entry, in turns), and its single chunk; the
-           ablation kernel at its tool's shape and count, its `full` variant
-           also against the chunk kernel (bit for bit); the capacity probe
-           at every size up to the card's limit and one above it
+           ablation kernel at its tool's shape and count, its launches on
+           the card, its `full` variant also against the chunk kernel (bit
+           for bit at 16 and 50 iterations) and against a rerun; the
+           capacity probe at every size up to the card's limit and one
+           above it, its kernel's time (events around the launch) beside
+           its call's
   ablate   the ablation tool at (16, 256, 1024): microseconds per iteration
            of the six variants of the TV-L1 iteration
   smem_cap the capacity probe's table: sizes granted, occupancy, and the
-           shared-memory constants the kernels rest on
+           shared memory the kernels ask for (the replaced per-chunk
+           window, the chunk kernel's one-block limit, the level grid's
+           window, the ablation kernel's block)
   solve    tvl1_flow_batched at (16, 256, 1024), both EPE gates; then a
            `levels` line: per-level kernel times of a 32-image solve, the
            steps each level took on the card and how full its grid was,
@@ -1170,22 +1175,80 @@ def kernels_chunk():
     return main_case
 
 
-def kernels_ablate():
-    """The ablation kernel (csrc/tvl1_ablate.cu) at the shapes its tool gives
-    it, (16, 256, 1024) and m = 50: each of the six variants against its
-    plain version, and `full` against the chunk kernel with the exit
-    disabled, which it must equal bit for bit."""
+def ablate_full_vs_chunk(ro, state, m, h, w):
+    """`full` after m iterations against the chunk kernel with the exit
+    disabled, in chunks of CHUNK_K (the last what is left): the largest
+    difference of the states, which must be 0.0, and of the error sums of
+    the last iteration, relative."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.ops.tvl1_ablate_cuda import (
-        ABLATE_K,
+        VARIANTS,
+        tvl1_ablate_chunks,
+    )
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import CHUNK_K, tvl1_chunk
+
+    params = TVL1Params(nscales=1)
+    cs = state
+    for k in (CHUNK_K,) * (m // CHUNK_K) + (m % CHUNK_K,) * (m % CHUNK_K > 0):
+        cs, ce = tvl1_chunk(ro, cs, k, -1.0, params)
+    fs, fe = tvl1_ablate_chunks(ro, state, m, h, w, **VARIANTS["full"])
+    torch.cuda.synchronize()
+    errs = float(((fe[:, 0] - ce.sum(1)).abs() / ce.sum(1).abs()).max())
+    return max_abs_diff(fs, cs), errs
+
+
+def ablate_variants_vs_plain(ro, state, h, w, m_div, tol):
+    """Each of the six variants against its plain version: m_div iterations
+    with the divisions, 2 without (no contraction then: kernels_ablate).
+    Returns one case a variant; fails on the first that is off."""
+    import torch
+
+    from optflow_tpu_torch.ops.tvl1_ablate_cuda import (
+        VARIANTS,
+        tvl1_ablate_chunks,
+        tvl1_ablate_plain,
+    )
+
+    n = state.shape[0]
+    cases = []
+    for name, flags in VARIANTS.items():
+        m = m_div if flags["div"] else 2
+        ks, ke = tvl1_ablate_chunks(ro, state, m, h, w, **flags)
+        ps, pe = tvl1_ablate_plain(ro, state, m, h, w, **flags)
+        finite = bool(torch.isfinite(ks).all() and torch.isfinite(ps).all())
+        scale = 1.0 if flags["div"] else float(ps.abs().max())
+        diff = max_abs_diff(ks, ps) / scale
+        err_rel = float(((ke - pe).abs() / pe.abs().clamp(min=1e-12)).max())
+        cases.append({"variant": name, "m": m, "max_abs_du": diff,
+                      "relative_to": scale, "errs_max_rel": err_rel})
+        if not (finite and diff <= tol and err_rel <= 1e-3):
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"ablation kernel at {tuple(state.shape)}, variant {name}: "
+                 f"finite {finite}, state differs by {diff} (tolerance "
+                 f"{tol}), errors by {err_rel}")
+        if not flags["err"] and ke.flatten().tolist() != [1.0] * n:
+            fail(f"variant {name} has no error sum and must return ones")
+    return cases
+
+
+def kernels_ablate():
+    """The ablation kernel (csrc/tvl1_ablate.cu) at the shapes its tool gives
+    it, (16, 256, 1024) and m = 50: each of the six variants against its
+    plain version, and `full` against the chunk kernel with the exit
+    disabled, which it must equal bit for bit. Then the same at (2, 96, 198),
+    whose width, not a multiple of 4, takes the kernel's 4-byte window
+    copies (1024 columns take the 16-byte ones)."""
+    import torch
+
+    from optflow_tpu_torch.ops.tvl1_ablate_cuda import (
         VARIANTS,
         launches_per_call,
         tvl1_ablate_chunks,
         tvl1_ablate_plain,
     )
-    from optflow_tpu_torch.ops.tvl1_chunk_cuda import chunk_geometry, tvl1_chunk
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import chunk_geometry
     from optflow_tpu_torch.tools.kernel_ablate import make_inputs
 
     dev = torch.device("cuda")
@@ -1233,11 +1296,15 @@ def kernels_ablate():
             "state_moved": max_abs_diff(ks, state),
             # tallied by the library, beside what the wrapper says it enqueues
             "device_launches": launched, "device_memops": memops,
-            "tile_launches_enqueued": launches_per_call(m),
+            "launches_enqueued": launches_per_call(m),
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by,
         }
         cases.append(case)
+        if launched != launches_per_call(m):
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"ablation kernel, variant {name}: {launched} launches on "
+                 f"the card, {launches_per_call(m)} expected")
         if not (finite and diff <= tol and err_rel <= 1e-3):
             emit({"phase": "kernels", "cases": cases})
             fail(f"ablation kernel, variant {name}: finite {finite}, state "
@@ -1281,37 +1348,48 @@ def kernels_ablate():
                 fail(f"no_div at m = {lo}: kernel and plain version agree on "
                      f"finiteness at only {same} of the positions")
 
-    # `full` is the chunk kernel's tile mode with the exit disabled: two
-    # chunks of 8 there, one call of 16 here, not one bit apart
+    # `full` is the chunk kernel's iteration with the exit disabled: two
+    # chunks of 8 there (its tiles, its shared-memory window), four launches
+    # of 4 here (registers), not one bit apart; at m = 50 six chunks of 8
+    # and one of 2 there, 13 launches here (the last of 2)
     if chunk_geometry(h, w).one_block:
         fail(f"{h} x {w} was expected to run in tiles")
-    params = TVL1Params(nscales=1)
-    cs = state
-    for _ in range(16 // ABLATE_K):
-        cs, ce = tvl1_chunk(ro, cs, ABLATE_K, -1.0, params)
+    vs_chunk, errs_vs_chunk = ablate_full_vs_chunk(ro, state, 16, h, w)
+    vs_chunk_50, _ = ablate_full_vs_chunk(ro, state, lo, h, w)
+    # a rerun gives the same bits, the error sums included
     fs, fe = tvl1_ablate_chunks(ro, state, 16, h, w, **VARIANTS["full"])
-    torch.cuda.synchronize()
-    vs_chunk = max_abs_diff(fs, cs)
-    errs_vs_chunk = float(
-        ((fe[:, 0] - ce.sum(1)).abs() / ce.sum(1).abs()).max())
-    # the last launch of a call is the short one: m = 50 ends on 2
-    ls, _ = tvl1_ablate_chunks(ro, state, lo, h, w, **VARIANTS["full"])
-    cs = state
-    for m in (8,) * 6 + (2,):
-        cs, _ = tvl1_chunk(ro, cs, m, -1.0, params)
-    torch.cuda.synchronize()
-    vs_chunk_50 = max_abs_diff(ls, cs)
+    fs2, fe2 = tvl1_ablate_chunks(ro, state, 16, h, w, **VARIANTS["full"])
+    rerun_equal = bool(torch.equal(fs, fs2) and torch.equal(fe, fe2))
     main_case.update({"max_abs_vs_chunk_kernel": vs_chunk,
                       "max_abs_vs_chunk_kernel_m50": vs_chunk_50,
-                      "errs_rel_vs_chunk_kernel": errs_vs_chunk})
+                      "errs_rel_vs_chunk_kernel": errs_vs_chunk,
+                      "rerun_bit_identical": rerun_equal})
+    # the 4-byte copies: a width that is not a multiple of 4
+    nn, nh, nw = 2, 96, 198
+    nro, nstate = make_inputs(nn, nh, nw, dev)
+    if chunk_geometry(nh, nw).one_block:
+        fail(f"{nh} x {nw} was expected to run in tiles")
+    narrow = {"shape": [nn, nh, nw], "copies": "4 B",
+              "variants": ablate_variants_vs_plain(nro, nstate, nh, nw, lo,
+                                                   tol)}
+    narrow["max_abs_vs_chunk_kernel"], narrow["errs_rel_vs_chunk_kernel"] = (
+        ablate_full_vs_chunk(nro, nstate, 16, nh, nw))
+    narrow["max_abs_vs_chunk_kernel_m50"], _ = ablate_full_vs_chunk(
+        nro, nstate, lo, nh, nw)
+    main_case["four_byte_copies"] = narrow
     emit({"phase": "kernels", "cases": cases})
-    if vs_chunk != 0.0 or vs_chunk_50 != 0.0:
-        fail(f"ablation variant `full` differs from the chunk kernel by "
-             f"{vs_chunk} (m = 16) and {vs_chunk_50} (m = 50): it must be "
-             f"the same arithmetic, bit for bit")
-    if not errs_vs_chunk <= 1e-5:
-        fail(f"`full` error sums differ from the chunk kernel's by "
-             f"{errs_vs_chunk}")
+    for where, case in (("", main_case), (f" at {nw} columns", narrow)):
+        d16, d50 = (case["max_abs_vs_chunk_kernel"],
+                    case["max_abs_vs_chunk_kernel_m50"])
+        if d16 != 0.0 or d50 != 0.0:
+            fail(f"ablation variant `full`{where} differs from the chunk "
+                 f"kernel by {d16} (m = 16) and {d50} (m = 50): it must be "
+                 f"the same arithmetic, bit for bit")
+        if not case["errs_rel_vs_chunk_kernel"] <= 1e-5:
+            fail(f"`full` error sums{where} differ from the chunk kernel's "
+                 f"by {case['errs_rel_vs_chunk_kernel']}")
+    if not rerun_equal:
+        fail("a rerun of the ablation kernel's `full` gave other bits")
     return main_case
 
 
@@ -1330,6 +1408,7 @@ def kernels_smem():
     from optflow_tpu_torch.ops.smem_cap_cuda import (
         device_shared_memory,
         error_string,
+        last_kernel_ms,
         smem_fill_mean,
         smem_fill_mean_plain,
     )
@@ -1364,14 +1443,33 @@ def kernels_smem():
         if status.ok and not row["abs_err"] <= 1e-6:
             emit({"phase": "kernels", "cases": rows})
             fail(f"probe at {n_bytes} B: mean off by {row['abs_err']}")
+    # Two times of the largest size: `kernel_ms`, the kernel with its
+    # launch latency on the card, by the CUDA events the call records around
+    # its launch (mean of 20); and `call_ms`, the whole call as a caller
+    # waits for it (it synchronises, as the TPU probe blocked on its
+    # result), by events around 20 calls.
     n_bytes = attrs.optin_per_block
-    ms = time_cuda(lambda: smem_fill_mean(n_bytes, x), 20)
+    kernel_times = []
+
+    def timed_call():
+        smem_fill_mean(n_bytes, x)
+        kernel_times.append(last_kernel_ms())
+
+    call_ms = time_cuda(timed_call, 20)
+    ms = sum(kernel_times) / len(kernel_times)
     plain_ms = time_cuda(lambda: smem_fill_mean_plain(n_bytes, x), 20)
+    # the kernel's own duration on the card, without the events' launch
+    # latency, where the profiler can trace the card (reported, not gated)
+    traced = trace_device(
+        lambda: [smem_fill_mean(n_bytes, x) for _ in range(20)])
     case = {
         "kernel": "smem_fill_mean", "shape": [n_bytes // 4],
         "max_abs_du": worst, "tolerance": 1e-6,
         "largest_ok_bytes": largest, "attrs": attrs._asdict(),
-        "sizes": rows, "kernel_ms": ms, "plain_ms": plain_ms,
+        "sizes": rows, "kernel_ms": ms, "call_ms": call_ms,
+        "traced_kernel_ms": (None if traced["busy_ms"] is None
+                             else traced["busy_ms"] / 20),
+        "plain_ms": plain_ms,
         "bound_ms": smem_bound_ms(n_bytes, attrs.clock_khz),
         "bound_by": "bytes",
     }
@@ -1379,6 +1477,9 @@ def kernels_smem():
     if largest != attrs.optin_per_block:
         fail(f"the largest size that ran, {largest} B, is not the card's "
              f"opt-in limit {attrs.optin_per_block} B")
+    if not 0.0 < ms <= call_ms:
+        fail(f"the probe's kernel time {ms} ms is not within its call's "
+             f"{call_ms} ms")
     return case
 
 
@@ -1415,7 +1516,7 @@ def phase_ablate(results):
 
 def phase_smem_cap(results):
     """The capacity probe's table, and the port's constants against it."""
-    from optflow_tpu_torch.tools.smem_cap import run_probe
+    from optflow_tpu_torch.tools.smem_cap import CONSTANTS, run_probe
 
     zero_launch_counts()  # a main path of its kernel
     table = run_probe("cuda")
@@ -1429,8 +1530,9 @@ def phase_smem_cap(results):
         if r["ok"] and not (r["resident"] and r["one_more_refused"]):
             fail(f"smem_cap: at {r['kib']} KiB the reported occupancy "
                  f"{r['occupancy']} does not hold: {r}")
-    if not (table["blocked_window_fits"] and table["chunk_one_block_fits"]):
-        fail(f"a kernel's shared-memory constant exceeds the largest size "
+    too_big = [key for key in CONSTANTS if not table[key + "_fits"]]
+    if too_big:
+        fail(f"the shared memory of {too_big} exceeds the largest size "
              f"that ran, {table['largest_ok_bytes']} B")
     if launches < 1:
         fail("the probe tool did not launch its kernel")
@@ -3790,7 +3892,8 @@ def main(argv=None) -> int:
             "shape": case["shape"],
             **{k: case[k] for k in (
                 "entry", "warps", "iterations", "k", "m", "mode", "variant",
-                "replaced_kernel_ms", "device_launches", "device_memops",
+                "replaced_kernel_ms", "call_ms", "device_launches",
+                "device_memops",
                 "replaced_kernel_device_launches", "grid_steps",
                 "grid_blocks", "single_chunk") if k in case},
             "max_abs_err": case["max_abs_du"], "tolerance": case["tolerance"],

@@ -1,8 +1,10 @@
 // Shared device code of the TV-L1 kernels (sm_90a): the centered gradient,
-// the exact-gather warp of one pixel, and the primal-dual iteration on a
-// window of a level held in shared memory. Included by tvl1_level.cu,
-// tvl1_blocked.cu, tvl1_chunk.cu and tvl1_ablate.cu; each of those is its own
-// library.
+// the exact-gather warp of one pixel, the primal-dual arithmetic of one
+// pixel (`threshold_step`, `primal_update`, `dual_update`), and the
+// iteration on a window of a level held in shared memory, which calls them. Included by tvl1_level.cu,
+// tvl1_blocked.cu, tvl1_chunk.cu and tvl1_ablate.cu (whose kernel keeps its
+// pixels in registers and calls the per-pixel functions itself); each of
+// those is its own library.
 //
 // Arithmetic is the plain solver's (ops/tvl1.py `_iteration`,
 // ops/warp.py `warp_backward`) in the same order everywhere: exact
@@ -10,9 +12,11 @@
 // FMA, so the kernels differ from the plain PyTorch version in the last
 // bits, and agree with each other.
 //
-// The iteration takes four compile-time switches, all on by default (the
-// level, blocked and chunk kernels leave them so). tvl1_ablate.cu turns them
-// off to build the iteration with one class of cost compiled out:
+// The per-pixel functions and the window iteration take compile-time
+// switches, all on by default (the level, blocked and chunk kernels leave
+// them so). tvl1_ablate.cu turns them off in its own iteration, around the
+// per-pixel functions, to build it with one class of cost compiled out (no
+// kernel turns off the window iteration's any more):
 //   ERR   the sum of |u_new - u|^2 and its block-wide reduction
 //   SQRT  the two square roots of the dual norms (off: the squared norm)
 //   DIV   the five divisions (off: multiplications by the same operand)
@@ -162,6 +166,48 @@ __device__ __forceinline__ void threshold_step(float a, float b, float rho_c,
   }
 }
 
+// The rest of the first half of an iteration at one pixel, after its
+// threshold step (d1, d2): u <- u + d + theta * div p. (U1, U2) is the
+// pixel's u, (q11, q12, q21, q22) its p, l11 / l21 the p11 / p21 of the
+// pixel to the left and a12 / a22 the p12 / p22 of the pixel above;
+// `has_left` / `has_above` are false at the image's first column / row,
+// where the backward difference is p itself. With threshold_step and
+// dual_update this is the arithmetic of an iteration, the same text in
+// every kernel, so the same operands give the same bits in all of them.
+__device__ __forceinline__ void primal_update(
+    float U1, float U2, float d1, float d2, float q11, float q12, float q21,
+    float q22, float l11, float l21, float a12, float a22, bool has_left,
+    bool has_above, float theta, float* n1, float* n2) {
+  float div1 = (has_left ? q11 - l11 : q11) + (has_above ? q12 - a12 : q12);
+  float div2 = (has_left ? q21 - l21 : q21) + (has_above ? q22 - a22 : q22);
+  *n1 = (U1 + d1) + theta * div1;
+  *n2 = (U2 + d2) + theta * div2;
+}
+
+// The second half at one pixel, from the forward differences of the new u
+// (zero at the image's last column / row): p <- (p + taut * grad u) /
+// (1 + taut * |grad u|), the four p in place.
+template <bool SQRT = true, bool DIV = true>
+__device__ __forceinline__ void dual_update(float u1x, float u1y, float u2x,
+                                            float u2y, float taut, float* p11,
+                                            float* p12, float* p21,
+                                            float* p22) {
+  float s1 = u1x * u1x + u1y * u1y, s2 = u2x * u2x + u2y * u2y;
+  float ng1 = 1.0f + taut * (SQRT ? sqrtf(s1) : s1);
+  float ng2 = 1.0f + taut * (SQRT ? sqrtf(s2) : s2);
+  if (DIV) {
+    *p11 = (*p11 + taut * u1x) / ng1;
+    *p12 = (*p12 + taut * u1y) / ng1;
+    *p21 = (*p21 + taut * u2x) / ng2;
+    *p22 = (*p22 + taut * u2y) / ng2;
+  } else {
+    *p11 = (*p11 + taut * u1x) * ng1;
+    *p12 = (*p12 + taut * u1y) * ng1;
+    *p21 = (*p21 + taut * u2x) * ng2;
+    *p22 = (*p22 + taut * u2y) * ng2;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // A window of one image in shared memory
 // ---------------------------------------------------------------------------
@@ -303,10 +349,9 @@ __device__ __forceinline__ float window_primal(const Window& t, float l_t,
     float l21 = !ROLL ? q21 : lx > 0 ? p21[idx - 1] : 0.0f;
     float a12 = !ROLL ? q12 : ly > 0 ? p12[idx - ww] : 0.0f;
     float a22 = !ROLL ? q22 : ly > 0 ? p22[idx - ww] : 0.0f;
-    float div1 = (x > 0 ? q11 - l11 : q11) + (y > 0 ? q12 - a12 : q12);
-    float div2 = (x > 0 ? q21 - l21 : q21) + (y > 0 ? q22 - a22 : q22);
-    float n1 = (U1 + d1) + theta * div1;
-    float n2 = (U2 + d2) + theta * div2;
+    float n1, n2;
+    primal_update(U1, U2, d1, d2, q11, q12, q21, q22, l11, l21, a12, a22,
+                  x > 0, y > 0, theta, &n1, &n2);
     u1[idx] = n1;
     u2[idx] = n2;
     if (ERR && y >= iy0 && y < iy1 && x >= ix0 && x < ix1) {
@@ -342,20 +387,8 @@ __device__ __forceinline__ void window_dual(const Window& t, float taut) {
     float u1y = below ? (ROLL ? u1[idx + ww] : c1) - c1 : 0.0f;
     float u2x = right ? (ROLL ? u2[idx + 1] : c2) - c2 : 0.0f;
     float u2y = below ? (ROLL ? u2[idx + ww] : c2) - c2 : 0.0f;
-    float s1 = u1x * u1x + u1y * u1y, s2 = u2x * u2x + u2y * u2y;
-    float ng1 = 1.0f + taut * (SQRT ? sqrtf(s1) : s1);
-    float ng2 = 1.0f + taut * (SQRT ? sqrtf(s2) : s2);
-    if (DIV) {
-      p11[idx] = (p11[idx] + taut * u1x) / ng1;
-      p12[idx] = (p12[idx] + taut * u1y) / ng1;
-      p21[idx] = (p21[idx] + taut * u2x) / ng2;
-      p22[idx] = (p22[idx] + taut * u2y) / ng2;
-    } else {
-      p11[idx] = (p11[idx] + taut * u1x) * ng1;
-      p12[idx] = (p12[idx] + taut * u1y) * ng1;
-      p21[idx] = (p21[idx] + taut * u2x) * ng2;
-      p22[idx] = (p22[idx] + taut * u2y) * ng2;
-    }
+    dual_update<SQRT, DIV>(u1x, u1y, u2x, u2y, taut, &p11[idx], &p12[idx],
+                           &p21[idx], &p22[idx]);
   }
 }
 

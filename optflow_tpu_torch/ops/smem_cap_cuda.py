@@ -5,8 +5,9 @@ CUDA kernel (``csrc/smem_cap.cu``) and its plain PyTorch version.
 shared memory, fills it with a value read from device memory, sums it in a
 fixed order and returns the mean, with the CUDA status of the request and of
 the launch. A size the card refuses is the probe's RESULT (a non-zero
-status), not an exception; every other failure raises. The tool
-``python -m optflow_tpu_torch.tools.smem_cap`` walks the sizes.
+status), not an exception; every other failure raises. The kernel's own
+time, by two CUDA events around the launch, is :func:`last_kernel_ms`. The
+tool ``python -m optflow_tpu_torch.tools.smem_cap`` walks the sizes.
 
 On a CUDA device the wrapper launches the kernel or raises; on the CPU it
 takes :func:`smem_fill_mean_plain`. The library is compiled at the first CUDA
@@ -53,7 +54,7 @@ def _library() -> ctypes.CDLL:
             lib = _build.load_library("smem_cap")
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.smem_fill_mean.argtypes = [ctypes.c_longlong, ptr, ptr, i32,
-                                           i32, i32, ptr, ptr]
+                                           i32, i32, ptr, ptr, ptr]
             lib.smem_fill_mean.restype = i32
             lib.smem_occupancy.argtypes = [ctypes.c_longlong, i32]
             lib.smem_occupancy.restype = i32
@@ -118,8 +119,10 @@ def smem_fill_mean(
     resident at once.
 
     On a CUDA device this launches the kernel and waits for it
-    (``smem_fill_mean.launches`` counts the launches that ran) or raises; on
-    the CPU it takes the plain version."""
+    (``smem_fill_mean.launches`` counts the launches that ran; the
+    kernel's milliseconds are :func:`last_kernel_ms`) or raises; on the CPU
+    it takes the plain version. The size attribute is only set when the size
+    differs from the last one granted."""
     if isinstance(x, torch.Tensor):
         xt = x.to(torch.float32).reshape(1).contiguous()
     else:
@@ -131,11 +134,13 @@ def smem_fill_mean(
     lib = _library()
     dev = xt.device
     status = (ctypes.c_int * 3)(-1, -1, -1)
+    kernel_ms = ctypes.c_float(float("nan"))
     with torch.cuda.device(dev):
         means = torch.empty(blocks, dtype=torch.float32, device=dev)
         code = lib.smem_fill_mean(
             n_bytes, xt.data_ptr(), means.data_ptr(), blocks, threads,
             int(cooperative), ctypes.addressof(status),
+            ctypes.addressof(kernel_ms),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if code != 0:
@@ -144,13 +149,22 @@ def smem_fill_mean(
         )
     result = ProbeStatus(*status)
     if result.launch == 0:
-        smem_fill_mean.count_launch()
+        smem_fill_mean.count_launch(work=kernel_ms.value)
     if result.launch == 0 and result.sync != 0:
         # the kernel started and failed: a fault, not a refusal
         raise RuntimeError(
             f"smem_fill_mean: the kernel failed: {error_string(result.sync)}"
         )
     return result, (means if result.ok else None)
+
+
+def last_kernel_ms() -> Optional[float]:
+    """Milliseconds between the CUDA events recorded on the stream before
+    and after the kernel of this thread's last :func:`smem_fill_mean` that
+    launched one (NaN where it did not finish; None before the first): the
+    kernel with its launch latency on the card, not the call's host round
+    trip."""
+    return smem_fill_mean.last_work
 
 
 def occupancy(n_bytes: int, threads: int = 1024,

@@ -14,10 +14,17 @@ with up to four classes of cost compiled out of the iteration:
           value, so every difference is 0).
 
 The six variants the tool times are in :data:`VARIANTS`, under the names of
-the JAX package's ``tools_kernel_ablate.py``. With all four on, the kernel is
-the chunk kernel's tile mode with the exit disabled, bit for bit. ``div=False``
+the JAX package's ``tools_kernel_ablate.py``. With all four on, the result
+is the chunk kernel's with the exit disabled, bit for bit. ``div=False``
 drives the state to inf/NaN within a few iterations; that is the variant's
 nature (it exists to be timed), not a fault.
+
+The kernel (design notes in its source) holds a window of 96 x 32 pixels a
+block in registers and runs at most :data:`ABLATE_K` iterations a launch,
+keeping the window's inner :data:`TILE_H` x :data:`TILE_W` tile; a call is
+:func:`launches_per_call` launches. :func:`tvl1_ablate_schedule_plain` is
+that schedule in plain PyTorch (the tests hold it to the plain version bit
+for bit).
 
 On a CUDA tensor the wrapper launches the kernel or raises; a CPU tensor
 takes :func:`tvl1_ablate_plain`. The library is compiled at the first CUDA
@@ -27,7 +34,7 @@ call (``ops/_build.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -35,10 +42,11 @@ from optflow_tpu_torch.ops import _build
 from optflow_tpu_torch.ops.tvl1 import _GRAD_EPS
 from optflow_tpu_torch.ops.warp import divergence, forward_gradient
 
-# Iterations per launch and the tile, as the chunk kernel's tile mode
-# (csrc/tvl1_ablate.cu); the wrapper checks them against the library.
-ABLATE_K = 8
-TILE_H, TILE_W = 32, 64
+# Iterations per launch (the halo) and the tile a block keeps
+# (csrc/tvl1_ablate.cu), for the schedule on the CPU; the wrapper checks them
+# against the library.
+ABLATE_K = 4
+TILE_H, TILE_W = 88, 24
 
 # The solver constants the JAX tool fixes (tools_kernel_ablate.py:36):
 # lambda * theta, theta, tau / theta at the reference defaults.
@@ -58,9 +66,24 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def launches_per_call(m: int) -> int:
-    """Device launches of the tile kernel that one call with ``m`` iterations
-    makes (one more sums the errors)."""
+    """Device launches that one call with ``m`` iterations makes: one per
+    :data:`ABLATE_K` iterations, the last of which also adds the errors."""
     return -(-m // ABLATE_K)
+
+
+def launch_iterations(m: int) -> List[int]:
+    """Iterations of each launch of a call: :data:`ABLATE_K`, the last one
+    what is left."""
+    return [min(ABLATE_K, m - i) for i in range(0, m, ABLATE_K)]
+
+
+def tiles(h: int, w: int) -> Iterator[Tuple[int, int, int, int]]:
+    """The tiles of an ``h x w`` image in the kernel's order (row-major):
+    ``(y0, y1, x0, x1)``, each the exact part of a window that reaches
+    :data:`ABLATE_K` pixels further on every side."""
+    for y0 in range(0, h, TILE_H):
+        for x0 in range(0, w, TILE_W):
+            yield y0, min(y0 + TILE_H, h), x0, min(x0 + TILE_W, w)
 
 
 def _library() -> ctypes.CDLL:
@@ -75,10 +98,11 @@ def _library() -> ctypes.CDLL:
             lib.tvl1_ablate_error_string.restype = ctypes.c_char_p
             built = (lib.tvl1_ablate_k(), lib.tvl1_ablate_tile_h(),
                      lib.tvl1_ablate_tile_w())
-            if built != (ABLATE_K, TILE_H, TILE_W):
+            expected = (ABLATE_K, TILE_H, TILE_W)
+            if built != expected:
                 raise RuntimeError(
-                    f"csrc/tvl1_ablate.cu was built with (k, tile) {built}, the "
-                    f"wrapper expects {(ABLATE_K, TILE_H, TILE_W)}"
+                    f"csrc/tvl1_ablate.cu was built with (k, tile) {built}, "
+                    f"the wrapper expects {expected}"
                 )
             _lib = lib
     return _lib
@@ -190,6 +214,58 @@ def tvl1_ablate_plain(
         return out, e[:, None]
 
 
+def tvl1_ablate_schedule_plain(
+    ro: torch.Tensor,  # (N, 3, HP, WP) float32: i1wx, i1wy, rho_c
+    state: torch.Tensor,  # (N, 6, HP, WP) float32
+    m: int,
+    h: int,
+    w: int,
+    *,
+    err: bool = True,
+    sqrt: bool = True,
+    div: bool = True,
+    roll: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's schedule in plain PyTorch: :func:`launch_iterations`,
+    and in each launch every tile of :func:`tiles` iterated on its window
+    (the tile and :data:`ABLATE_K` pixels around it, cut at the image) from
+    the launch's input, its tile kept. Each image's error is its tiles'
+    sums of the last iteration added in tile order. Same arguments and
+    result as :func:`tvl1_ablate_plain`."""
+    flags = dict(err=err, sqrt=sqrt, div=div, roll=roll)
+    _check_inputs(ro, state, m, h, w, flags)
+    k = ABLATE_K
+    with torch.no_grad():
+        fixed = ro[:, :, :h, :w]
+        cur = state[:, :, :h, :w].clone()
+        errs = None
+        for mi in launch_iterations(m):
+            nxt = torch.empty_like(cur)
+            sums = []
+            for y0, y1, x0, x1 in tiles(h, w):
+                wy0, wx0 = max(y0 - k, 0), max(x0 - k, 0)
+                win = (slice(None), slice(None), slice(wy0, min(y1 + k, h)),
+                       slice(wx0, min(x1 + k, w)))
+                planes = cur[win].unbind(1)
+                for _ in range(mi):
+                    before = planes[:2]
+                    planes, _ = _ablate_iteration(*planes, *fixed[win].unbind(1),
+                                                  **flags)
+                keep = (slice(None), slice(y0 - wy0, y1 - wy0),
+                        slice(x0 - wx0, x1 - wx0))
+                nxt[:, :, y0:y1, x0:x1] = torch.stack(
+                    [p[keep] for p in planes], dim=1)
+                sums.append(sum(((a[keep] - b[keep]) ** 2).sum(dim=(-2, -1))
+                                for a, b in zip(planes[:2], before)))
+            cur = nxt
+            errs = (torch.stack(sums, dim=1).sum(dim=1) if err
+                    else torch.ones(cur.shape[0], dtype=cur.dtype,
+                                    device=cur.device))
+        out = state.clone()
+        out[:, :, :h, :w] = cur
+        return out, errs[:, None]
+
+
 @_build.counted_launches
 def tvl1_ablate_chunks(
     ro: torch.Tensor,  # (N, 3, HP, WP) float32: i1wx, i1wy, rho_c
@@ -232,8 +308,10 @@ def tvl1_ablate_chunks(
         src = state[:, :, :h, :w].contiguous() if padded else state
         out = torch.empty_like(src)
         scratch = torch.empty_like(src) if m > ABLATE_K else None
-        tiles = -(-h // TILE_H) * -(-w // TILE_W)
-        tile_errs = torch.empty((n, tiles), dtype=torch.float32, device=dev)
+        n_tiles = -(-h // TILE_H) * -(-w // TILE_W)
+        # the tiles' sums and, last, a count of finished blocks: zero
+        tile_errs = torch.zeros((n, n_tiles + 1), dtype=torch.float32,
+                                device=dev)
         errs = torch.empty((n, 1), dtype=torch.float32, device=dev)
         code = lib.tvl1_ablate(
             src_ro.data_ptr(), src.data_ptr(), out.data_ptr(),

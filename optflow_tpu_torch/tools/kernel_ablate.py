@@ -5,23 +5,28 @@ this card?
         [--n 16 --h 256 --w 1024 --lo 50 --hi 600 --device cuda]
 
 Counterpart of the JAX package's ``tools_kernel_ablate.py``, with its six
-variants under the same names. Each variant is the chunk kernel's iteration
-with one class of cost compiled out (``ops/tvl1_ablate_cuda.py``):
+variants under the same names. Each variant is the TV-L1 iteration (the
+per-pixel arithmetic of the level kernels, in registers: design notes in
+``csrc/tvl1_ablate.cu``) with one class of cost compiled out
+(``ops/tvl1_ablate_cuda.py``):
 
-  full     the production iteration
+  full     the production iteration, its error sum every iteration
   no_err   the error sum and its reduction removed
   no_sqrt  the two dual-norm square roots replaced by the squared norm
   no_div   the five divisions replaced by multiplications
-  no_roll  the eight neighbour reads replaced by the pixel itself
+  no_roll  the neighbour reads replaced by the pixel itself, and the
+           exchange between threads that serves them (shuffles, edge rows,
+           barriers) removed
   min_body none of the four: the update arithmetic only
 
 Per variant the tool times a call of ``lo`` and a call of ``hi`` fixed
 iterations (CUDA events, median of 3 after a warm-up) and prints the slope
 ``(t_hi - t_lo) / (hi - lo)`` in microseconds per iteration, the pixel
 iterations per second that makes, and both raw times. The slope cancels what
-a call costs whatever its iteration count. It does NOT cancel the cost of a
-launch here: a call makes one launch per 8 iterations, so launches grow with
-the count, and the launches of both calls are printed beside the times.
+a call costs whatever its iteration count. It does NOT cancel the launches:
+a call makes one launch per 4 iterations (each reloads its windows from
+device memory), so launches grow with the count, and the launches of both
+calls are printed beside the times.
 
 Inputs come from ``numpy.random.default_rng(0)`` as the JAX tool makes them
 (state scaled by 0.1). ``--device cpu`` runs the plain version: a check of

@@ -17,19 +17,24 @@ granted AND runs. Per size (16 ... 228 KiB) it prints
               must be refused).
 
 It also prints the card's own limits (the opt-in limit of a block and the
-shared memory of a multiprocessor) and checks the constants the port's
-kernels rest on against the largest size that ran: the blocked level
-kernel's window and the chunk kernel's one-block limit.
+shared memory of a multiprocessor) and checks the shared memory the port's
+kernels ask for against the largest size that ran: the window of the
+blocked kernel's replaced per-chunk entry, the chunk kernel's one-block
+limit, the level grid's window (from the tile and halo its library reports)
+and the ablation kernel's block (as its library reports it). On the CPU the
+grid's window comes from the level wrapper's mirror of its tile and halo, and
+the ablation kernel's block is not known (no library is built there).
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from optflow_tpu_torch.ops import smem_cap_cuda as probe
+from optflow_tpu_torch.ops import tvl1_ablate_cuda, tvl1_cuda
 from optflow_tpu_torch.ops.tvl1_chunk_cuda import ONE_BLOCK_MAX_PX
 
 SIZES_KIB = (16, 32, 48, 64, 96, 128, 160, 192, 224, 227, 228)
@@ -43,9 +48,43 @@ BLOCKED_WINDOW_BYTES = 9 * 64 * 96 * 4
 CHUNK_ONE_BLOCK_BYTES = ONE_BLOCK_MAX_PX * 36
 
 
+def grid_window_bytes(on_card: bool) -> int:
+    """Dynamic shared memory of the level grid's largest window: 9 float
+    planes of a tile and its halo on every side, from the tile and halo that
+    csrc/tvl1_grid.cuh reports through the level kernel's library (the
+    wrapper's mirror of them on the CPU)."""
+    if on_card:
+        lib = tvl1_cuda._library()
+        tile_h, tile_w = lib.tvl1_level_tile_h(), lib.tvl1_level_tile_w()
+        halo = lib.tvl1_level_halo()
+    else:
+        tile_h, tile_w = tvl1_cuda.LEVEL_TILE_H, tvl1_cuda.LEVEL_TILE_W
+        halo = tvl1_cuda.LEVEL_HALO
+    return 9 * (tile_h + 2 * halo) * (tile_w + 2 * halo) * 4
+
+
+def ablate_block_bytes(on_card: bool) -> Optional[int]:
+    """Shared memory a block of the ablation kernel holds, as its library
+    reports it; None on the CPU, where no library is built."""
+    if on_card:
+        return tvl1_ablate_cuda._library().tvl1_ablate_smem_bytes()
+    return None
+
+
+# table key -> what the tool prints for it
+CONSTANTS = {
+    "blocked_window": "replaced per-chunk entry's window (blocked kernel)",
+    "chunk_one_block": "chunk kernel's one-block limit",
+    "grid_window": "level grid's window",
+    "ablate_block": "ablation kernel's block",
+}
+
+
 def run_probe(device="cuda", sizes_kib=SIZES_KIB) -> dict:
     """The table as a dict: ``attrs``, one row per size under ``sizes``,
-    ``largest_ok_bytes`` and the two constants' checks."""
+    ``largest_ok_bytes``, and for each key of :data:`CONSTANTS` its bytes
+    (``<key>_bytes``) and whether they fit (``<key>_fits``; both None where
+    the size is not known)."""
     dev = torch.device(device)
     x = torch.full((1,), FILL, dtype=torch.float32, device=dev)
     on_card = dev.type == "cuda"
@@ -77,14 +116,15 @@ def run_probe(device="cuda", sizes_kib=SIZES_KIB) -> dict:
                 "one_more_refused": not st3.ok,
             })
         rows.append(row)
-    return {
-        "device": str(dev), "attrs": attrs, "sizes": rows,
-        "largest_ok_bytes": largest,
-        "blocked_window_bytes": BLOCKED_WINDOW_BYTES,
-        "blocked_window_fits": BLOCKED_WINDOW_BYTES <= largest,
-        "chunk_one_block_bytes": CHUNK_ONE_BLOCK_BYTES,
-        "chunk_one_block_fits": CHUNK_ONE_BLOCK_BYTES <= largest,
-    }
+    table = {"device": str(dev), "attrs": attrs, "sizes": rows,
+             "largest_ok_bytes": largest}
+    for key, n_bytes in (("blocked_window", BLOCKED_WINDOW_BYTES),
+                         ("chunk_one_block", CHUNK_ONE_BLOCK_BYTES),
+                         ("grid_window", grid_window_bytes(on_card)),
+                         ("ablate_block", ablate_block_bytes(on_card))):
+        table[key + "_bytes"] = n_bytes
+        table[key + "_fits"] = None if n_bytes is None else n_bytes <= largest
+    return table
 
 
 def main(argv=None) -> int:
@@ -115,12 +155,13 @@ def main(argv=None) -> int:
             line += f"  ({r['refused_by']})"
         print(line)
     print(f"largest size that ran: {table['largest_ok_bytes']} B")
-    for what, key in (("blocked level kernel's window", "blocked_window"),
-                      ("chunk kernel's one-block limit", "chunk_one_block")):
+    for key, what in CONSTANTS.items():
+        if table[key + "_bytes"] is None:
+            print(f"{what}: known from its library on a card")
+            continue
         print(f"{what}: {table[key + '_bytes']} B "
               f"{'fits' if table[key + '_fits'] else 'DOES NOT FIT'}")
-    ok = table["blocked_window_fits"] and table["chunk_one_block_fits"]
-    return 0 if ok else 1
+    return 1 if any(table[key + "_fits"] is False for key in CONSTANTS) else 0
 
 
 if __name__ == "__main__":

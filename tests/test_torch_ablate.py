@@ -13,6 +13,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import ablate_sweep
+import compare_trees
 import tools_kernel_ablate as jax_tool
 from optflow_tpu.ops.tvl1_pallas import _select_geometry
 from optflow_tpu_torch.core.config import TVL1Params
@@ -150,10 +152,52 @@ def test_padding_outside_the_real_size_is_returned_unchanged():
     assert torch.equal(out[:, :, :, 50:], state[:, :, :, 50:])
 
 
-@pytest.mark.parametrize("m,launches", [(1, 1), (8, 1), (9, 2), (50, 7),
-                                        (600, 75)])
+@pytest.mark.parametrize("m,launches", [(1, 1), (8, 2), (9, 3), (50, 13),
+                                        (600, 150)])
 def test_launches_per_call(m, launches):
+    """Four iterations a launch (the halo), the last launch what is left;
+    no separate launch for the errors."""
     assert tab.launches_per_call(m) == launches
+    assert len(tab.launch_iterations(m)) == launches
+    assert sum(tab.launch_iterations(m)) == m
+    assert max(tab.launch_iterations(m)) <= tab.ABLATE_K
+
+
+# shapes with several tiles both ways (tiles of 88 x 24), ragged last tiles,
+# one tile, and an image narrower than the halo; counts with and without a
+# short last launch
+@pytest.mark.parametrize("n,h,w,m", [(2, 200, 70, 9), (1, 40, 30, 4),
+                                     (2, 96, 50, 1), (1, 177, 49, 13),
+                                     (1, 12, 6, 6)])
+@pytest.mark.parametrize("name", list(tab.VARIANTS))
+def test_schedule_emulation_equals_the_plain_version(n, h, w, m, name):
+    """The kernel's schedule (launches of at most K iterations, each tile
+    iterated on its window of K more pixels a side and only its tile kept)
+    is the plain iteration of the whole image, bit for bit; the errors,
+    added tile by tile, within float32 rounding."""
+    flags = tab.VARIANTS[name]
+    m = m if flags["div"] else min(m, 2)
+    ro, state = kernel_ablate.make_inputs(n, h, w, "cpu")
+    got, got_e = tab.tvl1_ablate_schedule_plain(ro, state, m, h, w, **flags)
+    want, want_e = tab.tvl1_ablate_plain(ro, state, m, h, w, **flags)
+    assert torch.equal(got, want)
+    assert got_e.shape == want_e.shape == (n, 1)
+    assert torch.allclose(got_e, want_e, rtol=1e-5, atol=0.0)
+
+
+def test_tiles_cover_the_image_once_in_row_major_order():
+    h, w = 200, 70
+    seen = torch.zeros(h, w, dtype=torch.int32)
+    tiles = list(tab.tiles(h, w))
+    assert len(tiles) == -(-h // tab.TILE_H) * -(-w // tab.TILE_W) == 9
+    assert tiles == sorted(tiles)
+    for y0, y1, x0, x1 in tiles:
+        assert 0 < y1 - y0 <= tab.TILE_H and 0 < x1 - x0 <= tab.TILE_W
+        seen[y0:y1, x0:x1] += 1
+    assert bool((seen == 1).all())
+    # a block's window is 32 columns (one a lane) by 96 rows (24 warps of 4)
+    assert (tab.TILE_W + 2 * tab.ABLATE_K, tab.TILE_H + 2 * tab.ABLATE_K) == (
+        32, 96)
 
 
 @pytest.mark.parametrize("fault,exc", [
@@ -182,7 +226,8 @@ def test_ablation_wrapper_rejects_what_the_kernel_does_not_take(fault, exc):
 def test_ablation_tool_runs_on_the_cpu(capsys):
     rows = kernel_ablate.run_ablation(2, 24, 40, lo=2, hi=5, device="cpu")
     assert [r["name"] for r in rows] == list(tab.VARIANTS)
-    assert all(r["launches_lo"] == 1 and r["launches_hi"] == 1 for r in rows)
+    # the launches a call of 2 and of 5 iterations makes on a card
+    assert all(r["launches_lo"] == 1 and r["launches_hi"] == 2 for r in rows)
     assert all(np.isfinite(r["slope_us_per_iter"]) for r in rows)
     assert kernel_ablate.main(["--n", "1", "--h", "16", "--w", "24", "--lo",
                                "1", "--hi", "3", "--device", "cpu"]) == 0
@@ -190,6 +235,47 @@ def test_ablation_tool_runs_on_the_cpu(capsys):
     assert "min_body" in out and "us/iter" in out and "launches 1/1" in out
     with pytest.raises(ValueError):
         kernel_ablate.run_ablation(1, 16, 24, lo=5, hi=5, device="cpu")
+
+
+def test_sweep_patches_the_geometry_and_its_mirror(tmp_path):
+    """Patched to the built geometry the copy is unchanged (the patterns and
+    the shared-memory formula are the source's); patched to another it
+    carries the other one in both the source and the wrapper."""
+    import shutil
+
+    pkg = ablate_sweep.ROOT / "optflow_tpu_torch"
+    files = ("csrc/tvl1_ablate.cu", "ops/tvl1_ablate_cuda.py")
+    shutil.copytree(pkg, tmp_path / "optflow_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    assert ablate_sweep.parse("4,24,4") == (4, 24, tab.ABLATE_K, False)
+    ablate_sweep.patch(tmp_path, 4, 24, tab.ABLATE_K, False)
+    for f in files:
+        assert (tmp_path / "optflow_tpu_torch" / f).read_text() == (
+            pkg / f).read_text()
+    ablate_sweep.patch(tmp_path, 3, 32, 6, True)
+    cu = (tmp_path / "optflow_tpu_torch" / files[0]).read_text()
+    assert "constexpr int RUN = 3;" in cu and "constexpr int WARPS = 32;" in cu
+    assert "constexpr int ABLATE_K = 6;" in cu
+    assert "const bool vec = false && " in cu
+    py = (tmp_path / "optflow_tpu_torch" / files[1]).read_text()
+    assert "TILE_H, TILE_W = 84, 20" in py and "\nABLATE_K = 6\n" in py
+    for bad in ("4,24", "4,24,4,fast"):
+        with pytest.raises(ValueError):
+            ablate_sweep.parse(bad)
+
+
+def test_compare_trees_pairs_the_runs_in_turns(tmp_path):
+    """Runs other, this, this, other: each tree's mean is of its own two."""
+    runs = [{"kernels": {"a": {"ms": v, "call_ms": 2 * v}},
+             "ablate": {"slope_us_per_iter": {"full": 10 * v}}}
+            for v in (4.0, 1.0, 3.0, 6.0)]
+    got = compare_trees.in_turns(runs)
+    assert got["kernels"]["a"]["ms"] == {"runs": [4.0, 1.0, 3.0, 6.0],
+                                         "other": 5.0, "this": 2.0}
+    assert got["kernels"]["a"]["this_call_ms"] == [2.0, 6.0]
+    assert got["ablate_slope_us_per_iter"]["full"]["other"] == 50.0
+    with pytest.raises(SystemExit):
+        compare_trees.main([str(tmp_path)])  # no chip_smoke.py there
 
 
 # --- the shared-memory capacity probe ---------------------------------------
@@ -233,6 +319,29 @@ def test_probe_tool_on_the_cpu_and_the_ports_constants(capsys):
     assert "shared  227 KiB: OK" in out and "fits" in out
 
 
+def test_probe_tool_checks_the_grid_and_ablation_windows(capsys):
+    """The level grid's window, from the grid's tile and halo (the level
+    wrapper's mirror of csrc/tvl1_grid.cuh on the CPU), and the ablation
+    kernel's block are in the table; the block's size comes only from its
+    library, so on the CPU it is not known."""
+    from optflow_tpu_torch.ops import tvl1_cuda
+
+    table = smem_cap.run_probe("cpu")
+    grid = 9 * (tvl1_cuda.LEVEL_TILE_H + 2 * tvl1_cuda.LEVEL_HALO) * (
+        tvl1_cuda.LEVEL_TILE_W + 2 * tvl1_cuda.LEVEL_HALO) * 4
+    assert table["grid_window_bytes"] == grid == 103680
+    assert table["ablate_block_bytes"] is None
+    assert table["ablate_block_fits"] is None
+    assert set(smem_cap.CONSTANTS) == {
+        "blocked_window", "chunk_one_block", "grid_window", "ablate_block"}
+    assert all(table[k + "_fits"] for k in smem_cap.CONSTANTS
+               if k != "ablate_block")
+    assert smem_cap.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "level grid's window: 103680 B fits" in out
+    assert "ablation kernel's block: known from its library on a card" in out
+
+
 # --- on a card ---------------------------------------------------------------
 
 
@@ -244,15 +353,57 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_ablation_kernel_against_its_plain_version_on_the_card(cuda):
-    ro, state = kernel_ablate.make_inputs(2, 96, 200, cuda)
+# 200 columns take the kernel's 16-byte window copies, 198 (not a multiple
+# of 4) the 4-byte ones
+@pytest.mark.parametrize("w", [200, 198])
+def test_ablation_kernel_against_its_plain_version_on_the_card(cuda, w):
+    ro, state = kernel_ablate.make_inputs(2, 96, w, cuda)
     for name, flags in tab.VARIANTS.items():
         m = 19 if flags["div"] else 2
-        ks, ke = tab.tvl1_ablate_chunks(ro, state, m, 96, 200, **flags)
-        ps, pe = tab.tvl1_ablate_plain(ro, state, m, 96, 200, **flags)
+        ks, ke = tab.tvl1_ablate_chunks(ro, state, m, 96, w, **flags)
+        ps, pe = tab.tvl1_ablate_plain(ro, state, m, 96, w, **flags)
         scale = max(1.0, float(ps.abs().max()))
         assert float((ks - ps).abs().max()) / scale <= 1e-4, name
         assert torch.allclose(ke, pe, rtol=1e-3), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [16, 50])
+# 1024 columns take the 16-byte window copies, 198 (not a multiple of 4)
+# the 4-byte ones
+@pytest.mark.parametrize("n,h,w", [(3, 256, 1024), (2, 96, 198)])
+def test_full_equals_the_chunk_kernel_bit_for_bit_on_the_card(cuda, m, n, h,
+                                                              w):
+    """`full` against tvl1_chunk with the exit disabled, chunks of 8 (m = 50
+    ends on 2): the same per-pixel arithmetic in another schedule, not one
+    bit apart; the error sums within 1e-5 relative; a rerun the same bits."""
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import CHUNK_K, tvl1_chunk
+
+    ro, state = kernel_ablate.make_inputs(n, h, w, cuda)
+    got, got_e = tab.tvl1_ablate_chunks(ro, state, m, h, w)
+    want = state
+    for k in (CHUNK_K,) * (m // CHUNK_K) + (m % CHUNK_K,) * (m % CHUNK_K > 0):
+        want, want_e = tvl1_chunk(ro, want, k, -1.0, TVL1Params(nscales=1))
+    assert torch.equal(got, want)
+    assert torch.allclose(got_e[:, 0], want_e.sum(1), rtol=1e-5, atol=0.0)
+    again, again_e = tab.tvl1_ablate_chunks(ro, state, m, h, w)
+    assert torch.equal(again, got) and torch.equal(again_e, got_e)
+
+
+@pytest.mark.gpu
+def test_probe_kernel_time_is_within_the_call(cuda):
+    """The kernel's time by the events around its launch is positive and no
+    longer than the whole call by the host clock."""
+    import time
+
+    attrs = probe.device_shared_memory(cuda)
+    x = torch.full((1,), 3.0, device=cuda)
+    probe.smem_fill_mean(attrs.optin_per_block, x)  # warm
+    t0 = time.perf_counter()
+    status, _ = probe.smem_fill_mean(attrs.optin_per_block, x)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert status.ok
+    assert 0.0 < probe.last_kernel_ms() <= wall_ms
 
 
 @pytest.mark.gpu

@@ -67,12 +67,14 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     pattern = re.compile(
         r"^\s*(?:from|import)\s+(jax|optflow_tpu)(?![\w])", re.MULTILINE
     )
-    files = sorted((ROOT / "optflow_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    package = sorted((ROOT / "optflow_tpu_torch").rglob("*.py"))
+    # the port's scripts beside the package
+    files = package + [ROOT / "chip_smoke.py", ROOT / "compare_trees.py",
+                       ROOT / "ablate_sweep.py"]
     assert len(files) > 20
     names = {f.name for f in files}
     assert {"tvl1_blocked_cuda.py", "tvl1_chunk_cuda.py", "prefetch.py"} <= names
-    rel = {str(f.relative_to(ROOT / "optflow_tpu_torch")) for f in files[:-1]}
+    rel = {str(f.relative_to(ROOT / "optflow_tpu_torch")) for f in package}
     assert {"features/align.py", "features/detect.py", "features/patches.py",
             "features/descriptors.py", "features/match.py",
             "features/ransac.py", "engine/features_glue.py",
