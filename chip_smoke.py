@@ -26,7 +26,10 @@ PyTorch version on the card:
   four times: the pair scheduler, the row-tiled halo solve of a full
   1024x2048 section, ``run_job_batched`` on a pairs mesh (the level and
   blocked kernels once for each device and each tile), the sharded
-  alignment solves, and two processes of the pod launcher.
+  alignment solves, and two processes of the pod launcher;
+- the native image loader, which decodes every job's frames from files,
+  and the deploy recipe: a wheel installed apart, which builds every kernel
+  and the loader from its own sources and runs a job on the card.
 
 Needs no file from outside the repository and no network: frames are
 synthesised from a seed.
@@ -38,7 +41,14 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
 
   device   a CUDA device must be present (never carries on on the CPU)
   build    compile (one nvcc per source, together) and load the five
-           kernel libraries from optflow_tpu_torch/csrc
+           kernel libraries from optflow_tpu_torch/csrc; then the image
+           loader (g++, native/loader.cpp): its seconds and its command
+  decode   the native image loader on the card machine's host: PNG, JPEG and
+           8- and 16-bit TIFF frames of 1024x2048 and two odd sizes at scales
+           1 and 0.5 against loader.cpp restated in numpy (0.0; JPEG against
+           the Python decoder within 6 gray levels on the mean), the odd
+           sizes' shapes against the lround rule, and frames a second of the
+           loader and of the Python decoder's pool, 8 threads each, in turns
   kernels  each kernel against its plain version on the card, with
            tolerances; the level kernel also against the blocked kernel (bit
            for bit); the blocked kernel also against the per-chunk kernel it
@@ -67,7 +77,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
   job      64 pairs through run_job_batched, match gate, launch count; the
            same job once more on the warm card
   cli      the same job (16 pairs) from PNG files through the CLI, when an
-           image library (cv2 or PIL) is installed; else a printed skip
+           image library (cv2 or PIL) is installed; else a printed skip. Its
+           `done:` line must name the native loader, or the Python decoder
+           where the loader cannot build
   section  tvl1_flow_batched at (4, 512, 1024) and (1, 1024, 1024) with a
            line naming the kernel that solved each level and the iterations
            it computed; then a `map` job
@@ -105,12 +117,18 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            and objective excess) of the align graph against the unsharded;
            two processes of optflow_tpu_torch.cli.run_pod on a 16-pair PNG
            job
+  install  deploy/bootstrap_venv_torch.sh --device cuda: the wheel, an
+           isolated install, its console scripts, every kernel and the loader
+           built from the installed tree, and a 2-pair PNG job of 1024x2048
+           sections through the installed CLI on the card (at least 10
+           launches of the level kernel, the decode phase's decoder, no JAX)
 
-Then the card's name and power limit, one ``{"kernels": [...]}`` line with
-every kernel's launches on the main path, its error against the plain
-version, its time, the plain version's time and its bound, and the kernels
-and memory operations one call of its wrapper put on the card (tallied by the
-library where it enqueues them), and last ``{"ok": true, "device": {...}}``.
+Then the run's seconds, the card's name and power limit, one
+``{"kernels": [...]}`` line with every kernel's launches on the main path,
+its error against the plain version, its time, the plain version's time and
+its bound, and the kernels and memory operations one call of its wrapper put
+on the card (tallied by the library where it enqueues them), and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -130,9 +148,9 @@ import time
 
 import numpy as np
 
-ALL_PHASES = ("device", "build", "kernels", "ablate", "smem_cap", "solve",
-              "job", "cli", "section", "level_api", "features", "style2",
-              "align", "dist")
+ALL_PHASES = ("device", "build", "decode", "kernels", "ablate", "smem_cap",
+              "solve", "job", "cli", "section", "level_api", "features",
+              "style2", "align", "dist", "install")
 KERNEL_STEMS = ("tvl1_level", "tvl1_blocked", "tvl1_chunk", "tvl1_ablate",
                 "smem_cap")
 
@@ -453,6 +471,8 @@ def phase_build():
         tvl1_cuda,
     )
 
+    from optflow_tpu_torch import native
+
     stems = KERNEL_STEMS
     t0 = time.perf_counter()
     _build.build_libraries(stems)  # one nvcc per source, started together
@@ -460,6 +480,18 @@ def phase_build():
                 tvl1_ablate_cuda, smem_cap_cuda):
         mod._library()
     secs = time.perf_counter() - t0
+    # the image loader, with the host compiler, after the kernels so that its
+    # seconds are its own; a failure is the decode phase's to judge
+    t0 = time.perf_counter()
+    native.available()
+    loader_path = _build.library_path("loader")
+    loader = {
+        "library": os.path.relpath(loader_path, os.getcwd()),
+        "compiled": "loader" in _build.build_seconds,
+        "seconds": time.perf_counter() - t0,
+        "command": " ".join(_build.compile_command("loader", loader_path)),
+        "error": native.build_error(),
+    }
     libs = {}
     for stem in stems:
         path = _build.library_path(stem)
@@ -472,7 +504,206 @@ def phase_build():
             "ptxas": [ln.strip() for ln in lines
                       if "registers" in ln or "spill" in ln][-16:],
         }
-    emit({"phase": "build", "seconds": round(secs, 3), "libraries": libs})
+    emit({"phase": "build", "seconds": round(secs, 3), "libraries": libs,
+          "loader": loader})
+
+
+# decode phase: frames of the job's source geometry, and two sizes whose
+# scaled sides end in .5 (the loader rounds them half up, cv2 to even)
+DECODE_FRAMES = 64
+DECODE_ODD_SIZES = ((1025, 2049), (73, 75))
+DECODE_THREADS = 8
+
+
+def loader_resize(img, scale):
+    """``resize_bilinear`` of optflow_tpu_torch/native/loader.cpp restated in
+    numpy, float32 statement for statement (the half-pixel rule, clamped
+    sources, ``std::lround`` sizes)."""
+    import math
+
+    f32 = np.float32
+    img = img.astype(f32)
+    s = f32(scale)
+    if s == f32(1.0):
+        return img
+    h, w = img.shape
+    # std::lround of the float product, a positive number
+    nh = int(math.floor(float(f32(h) * s) + 0.5))
+    nw = int(math.floor(float(f32(w) * s) + 0.5))
+
+    def taps(n_out, n_in):
+        f = (np.arange(n_out, dtype=f32) + f32(0.5)) * (f32(n_in) / f32(n_out))
+        f = f - f32(0.5)
+        f = np.minimum(np.maximum(f, f32(0)), f32(n_in - 1))
+        i0 = np.minimum(f.astype(np.int64), n_in - 2)
+        return i0, f - i0.astype(f32)
+
+    y0, wy = taps(nh, h)
+    x0, wx = taps(nw, w)
+    r0, r1 = img[y0], img[y0 + 1]
+    top = r0[:, x0] + wx * (r0[:, x0 + 1] - r0[:, x0])
+    bot = r1[:, x0] + wx * (r1[:, x0 + 1] - r1[:, x0])
+    return top + wy[:, None] * (bot - top)
+
+
+def loader_tiff_luma(gray8):
+    """``decode_tiff``'s BT.601 luma of a gray pixel (r = g = b), rounded to
+    the nearest even as ``std::nearbyint`` does, in float32."""
+    f32 = np.float32
+    v = gray8.astype(f32)
+    return np.rint(f32(0.299) * v + f32(0.587) * v + f32(0.114) * v)
+
+
+def write_image(path, arr, **jpeg):
+    """Write ``arr`` with cv2, or PIL where cv2 is not installed."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(arr).save(path, **jpeg)
+        return
+    params = [cv2.IMWRITE_JPEG_QUALITY, jpeg["quality"]] if jpeg else []
+    if not cv2.imwrite(path, arr, params):
+        fail(f"could not write {path}")
+
+
+def phase_decode(tmp):
+    """The native image loader on the card machine's host: its frames held
+    against the numpy restatement of loader.cpp (0.0 for PNG and TIFF, the
+    Python decoder's within 6 gray levels on the mean for JPEG) at scales 1
+    and 0.5, the shapes of the odd sizes, and frames a second of the loader
+    and of the Python decoder's pool, both with DECODE_THREADS threads.
+    These are host CPU times, not the card's."""
+    import math
+    from concurrent.futures import ThreadPoolExecutor
+
+    import scipy.ndimage as ndi
+
+    from optflow_tpu_torch import native
+    from optflow_tpu_torch.core import imgio
+    from optflow_tpu_torch.engine import prefetch
+
+    folder = os.path.join(tmp, "decode")
+    os.makedirs(folder)
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    tex = ndi.gaussian_filter(
+        rng.standard_normal((SRC_H, SRC_W + DECODE_FRAMES)), 2.0)
+    tex = (20 + 215 * (tex - tex.min()) / np.ptp(tex)).astype(np.uint8)
+    frames, pngs = [], []
+    for z in range(DECODE_FRAMES):
+        frame = np.ascontiguousarray(tex[:, z:z + SRC_W])
+        frame = frame + rng.integers(0, 4, frame.shape, dtype=np.uint8)
+        path = os.path.join(folder, f"sec_{z:04d}.png")
+        write_image(path, frame)
+        frames.append(frame)
+        pngs.append(path)
+    # (kind, path, the decode restated, the source)
+    cases = [("png", pngs[z], frames[z].astype(np.float32)) for z in range(4)]
+    for z in range(4):
+        for kind, ext, arr, want in (
+                ("jpeg", "jpg", frames[z], None),
+                ("tiff8", "tiff", frames[z], loader_tiff_luma(frames[z])),
+                # v * 257 + z is v after libtiff's reduction of a 16-bit
+                # sample, whether it keeps the high byte or rounds v / 257
+                ("tiff16", "tiff",
+                 frames[z].astype(np.uint16) * 257 + z,
+                 loader_tiff_luma(frames[z]))):
+            path = os.path.join(folder, f"{kind}_{z}.{ext}")
+            write_image(path, arr, **({"quality": 95} if kind == "jpeg"
+                                      else {}))
+            cases.append((kind, path, want))
+    odd = []
+    tall = np.pad(tex, ((0, 8), (0, 0)), mode="reflect")
+    for h, w in DECODE_ODD_SIZES:
+        arr = np.ascontiguousarray(tall[:h, :w])
+        path = os.path.join(folder, f"odd_{h}x{w}.png")
+        write_image(path, arr)
+        cases.append(("png", path, arr.astype(np.float32)))
+        odd.append((h, w, path))
+    write_s = time.perf_counter() - t0
+
+    def fps(decode_all):
+        t0 = time.perf_counter()
+        out = decode_all()
+        return len(out) / (time.perf_counter() - t0), out
+
+    def pool_all():
+        with ThreadPoolExecutor(DECODE_THREADS) as pool:
+            return list(pool.map(prefetch._decode, pngs, [SCALE] * len(pngs)))
+
+    # host clocks vary: the two decoders are timed in turns (pool, native,
+    # native, pool) and each reads the mean of its two rates
+    pool_fps = [fps(pool_all)[0]]
+    line = {"phase": "decode", "host": "the card machine's CPU",
+            "threads": DECODE_THREADS, "frames": DECODE_FRAMES,
+            "frame": [SRC_H, SRC_W], "scale": SCALE,
+            "python_decoder": imgio.decoder_name(), "write_s": write_s}
+    if not native.available():
+        error = native.build_error()
+        print(f"chip_smoke: the native loader did not build:\n{error}",
+              file=sys.stderr, flush=True)
+        header = native.missing_header()
+        pool_fps.append(fps(pool_all)[0])
+        emit({**line, "native": False, "build_error": error[-2000:],
+              "missing_header": header,
+              "pool_frames_per_s": float(np.mean(pool_fps))})
+        if header is None:
+            fail("decode: the native loader did not build, and no header it "
+                 "needs is missing")
+        return
+    loader = native.NativeLoader(DECODE_THREADS)
+    try:
+        def native_all():
+            ids = [loader.submit(p, SCALE) for p in pngs]
+            return [loader.wait(i) for i in ids]
+
+        native_fps, got = fps(native_all)
+        native_fps = [native_fps, fps(native_all)[0]]
+        pool_fps.append(fps(pool_all)[0])
+        errs = {}
+        for scale in (1.0, SCALE):
+            for kind, path, want in cases:
+                out = loader.load(path, scale)
+                if want is None:  # JPEG: the Python decoder's decode
+                    want = imgio.read_gray(path).astype(np.float32)
+                    err = float(np.abs(out - loader_resize(want, scale))
+                                .mean())
+                else:
+                    ref = loader_resize(want, scale)
+                    err = (float(np.abs(out - ref).max())
+                           if out.shape == ref.shape else math.inf)
+                key = f"{kind}@{scale}"
+                errs[key] = max(errs.get(key, 0.0), err)
+        shapes = {}
+        for h, w, path in odd:
+            want = (int(math.floor(float(np.float32(h) * np.float32(SCALE))
+                                   + 0.5)),
+                    int(math.floor(float(np.float32(w) * np.float32(SCALE))
+                                   + 0.5)))
+            shapes[f"{h}x{w}"] = {
+                "native": list(loader.load(path, SCALE).shape),
+                "lround": list(want),
+                "python": list(prefetch._decode(path, SCALE).shape)}
+    finally:
+        loader.close()
+    emit({**line, "native": True,
+          "native_frames_per_s": float(np.mean(native_fps)),
+          "pool_frames_per_s": float(np.mean(pool_fps)),
+          "turns_frames_per_s": [pool_fps[0], *native_fps, pool_fps[1]],
+          "err": errs, "err_is": "max abs; mean abs for jpeg",
+          "gates": {"png, tiff": 0.0, "jpeg": 6.0}, "shapes": shapes})
+    bad = [k for k, e in errs.items()
+           if not (e < 6.0 if k.startswith("jpeg") else e == 0.0)]
+    if bad:
+        fail(f"decode: the loader's frames differ from loader.cpp restated: "
+             f"{ {k: errs[k] for k in bad} }")
+    if any(v["native"] != v["lround"] for v in shapes.values()):
+        fail(f"decode: odd sizes off the lround rule: {shapes}")
+    if len(got) != DECODE_FRAMES or any(
+            g.shape != (SECTION_H, SECTION_W) for g in got):
+        fail("decode: the timed frames have the wrong shape")
 
 
 def phase_kernels(results):
@@ -1947,6 +2178,16 @@ def run_cli(job, tmp, tag, extra_args=()):
     return proc, match_sets, wall
 
 
+def expected_decoder():
+    """The decoder a job's prefetch loader uses on this machine: the native
+    loader where it builds (the decode phase fails where it does not and no
+    header is missing), else the Python decoder."""
+    from optflow_tpu_torch import native
+    from optflow_tpu_torch.core import imgio
+
+    return "native" if native.available() else imgio.decoder_name()
+
+
 def phase_cli(results, tmp):
     from optflow_tpu_torch.core import imgio
 
@@ -1967,9 +2208,18 @@ def phase_cli(results, tmp):
     # 16 pairs are one group, whose solve launches once per pyramid level
     found = re.search(r"'tvl1_level_solve': (\d+)", last_line)
     launches = int(found.group(1)) if found else None
-    emit({"phase": "cli", "decoder": decoder, "pairs": len(match_sets),
+    # the decoder the CLI's runner used, from its `done:` line
+    found = re.search(r"'decoder': '(\w+)'", last_line)
+    used = found.group(1) if found else None
+    expected = expected_decoder()
+    decode_s = re.search(r"'decode_s': ([0-9.e-]+)", last_line)
+    emit({"phase": "cli", "decoder": used, "expected_decoder": expected,
+          "decode_s": float(decode_s.group(1)) if decode_s else None,
+          "pairs": len(match_sets),
           "gated_matches": n_matches, "match_err_px": err, "gate_px": 1.0,
           "launches": launches, "wall_s": wall, "last_line": last_line})
+    if used != expected:
+        fail(f"the CLI decoded with {used}, expected {expected}")
     if launches is None or launches < 10:
         fail(f"the CLI reported {launches} level-kernel launches, "
              "expected at least 10 (one per pyramid level)")
@@ -3836,6 +4086,68 @@ def phase_dist(results, tmp):
             l[name] for l in (l_sched, l_tiled, l_eng))
 
 
+def phase_install(tmp):
+    """deploy/bootstrap_venv_torch.sh with the card: the wheel, an isolated
+    install and its console scripts, every kernel and the loader built from
+    the installed tree's own sources, and a 2-pair PNG `flow` job at scale
+    0.5 through the installed CLI on the card, with no JAX imported."""
+    import importlib.util
+
+    packaging = {m: importlib.util.find_spec(m) is not None
+                 for m in ("pip", "setuptools", "wheel")}
+    line = {"phase": "install", "python": sys.executable,
+            "packaging": packaging}
+    if not (packaging["pip"] and packaging["setuptools"]):
+        emit(line)
+        fail("install: this Python has no pip or setuptools to build the "
+             "wheel with")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    # the script's python3 is this interpreter, and the job imports the
+    # port from the install only
+    env["PATH"] = f"{os.path.dirname(sys.executable)}:{env.get('PATH', '')}"
+    env.pop("PYTHONPATH", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["bash", os.path.join(repo, "deploy", "bootstrap_venv_torch.sh"),
+         os.path.join(tmp, "install"), "--device", "cuda"],
+        capture_output=True, text=True, timeout=600, env=env)
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    done = [ln for ln in out.splitlines() if ln.startswith("done: ")]
+    done = done[-1] if done else ""
+    found = re.search(r"'tvl1_level_solve': (\d+)", done)
+    launches = int(found.group(1)) if found else None
+    found = re.search(r"'decoder': '(\w+)'", done)
+    decoder = found.group(1) if found else None
+    emit({**line, "rc": proc.returncode, "wall_s": wall,
+          "seconds": {m.group(1): float(m.group(2)) for m in re.finditer(
+              r"^   (\w+): ([0-9.]+) s$", out, re.MULTILINE)},
+          "built": re.findall(r"^(\w+): (\S+\.so)$", out, re.MULTILINE),
+          "loader_not_built": re.findall(r"loader: not built, (.*)$", out,
+                                         re.MULTILINE),
+          "flow_err_px": [float(e) for e in re.findall(
+              r"mean error ([0-9.]+) px", out)],
+          "launches": launches, "decoder": decoder, "done": done})
+    if proc.returncode != 0:
+        print(out[-3000:], proc.stderr[-3000:], file=sys.stderr)
+        fail(f"install: deploy/bootstrap_venv_torch.sh exited with "
+             f"{proc.returncode}")
+    if launches is None or launches < 10:
+        fail(f"install: the installed CLI reported {launches} level-kernel "
+             "launches, expected at least 10")
+    expected = expected_decoder()
+    if decoder != expected:
+        fail(f"install: the installed CLI decoded with {decoder}, expected "
+             f"{expected}")
+    built = {stem for stem, _ in re.findall(r"^(\w+): (\S+\.so)$", out,
+                                            re.MULTILINE)}
+    want = set(KERNEL_STEMS) | ({"loader"} if expected == "native" else set())
+    if not want <= built:
+        fail(f"install: {sorted(want - built)} not built from the installed "
+             "tree")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3848,12 +4160,15 @@ def main(argv=None) -> int:
 
     import torch
 
+    run_t0 = time.perf_counter()
     phase_device()  # always: nothing runs without a card
     results = {}
     tmp = tempfile.mkdtemp(prefix="optflow_chip_smoke_")
     try:
         if "build" in phases:
             phase_build()
+        if "decode" in phases:
+            phase_decode(tmp)
         if "kernels" in phases:
             phase_kernels(results)
         if "ablate" in phases:
@@ -3878,10 +4193,13 @@ def main(argv=None) -> int:
             phase_align(results, tmp)
         if "dist" in phases:
             phase_dist(results, tmp)
+        if "install" in phases:
+            phase_install(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     complete = set(ALL_PHASES) <= set(phases)
+    emit({"run_s": time.perf_counter() - run_t0, "phases": phases})
     print(gpu_name_and_limit(), flush=True)
     cases = results.get("kernel_cases")
     if cases is not None:

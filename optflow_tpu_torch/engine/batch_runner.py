@@ -53,7 +53,7 @@ from optflow_tpu_torch.dist.mesh import (
 from optflow_tpu_torch.engine import device_group as dg
 from optflow_tpu_torch.engine.features_glue import is_default_aligner
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
-from optflow_tpu_torch.engine.prefetch import make_prefetch_loader
+from optflow_tpu_torch.engine.prefetch import frame_decoder, make_prefetch_loader
 from optflow_tpu_torch.engine.pair import (
     Aligner,
     _solve_mode,
@@ -269,7 +269,8 @@ def run_job_batched(
 
     stats = {"pairs": 0, "skipped": 0, "uploads": 0, "matches": 0,
              "resumed": 0, "batched": 0, "sequential": 0,
-             "solve_device": None, "detected_frames": 0}
+             "solve_device": None, "detected_frames": 0,
+             "decoder": frame_decoder(loader)}
     batch_size = cfg.batch_size()
     upload_state = {"last": 0, "pending": False}
 

@@ -2,11 +2,13 @@
 
 The reference's pair loop decodes synchronously between GPU solves
 (src/optflow.cpp:106-125); its only overlap is the LRU-of-2 frame swap.
-Here the job's full image schedule is known up front, so a pool of threads
-decodes ``lookahead`` upcoming frames in the background while the GPU works
-on the current group. The decoder is the package's own (``core/imgio.py``:
-``cv2`` or ``PIL``, both of which release the interpreter lock while they
-decode and resize), so the threads do overlap.
+Here the job's full image schedule is known up front, so the native threaded
+loader (``native/``) decodes ``lookahead`` upcoming frames in the background
+while the GPU works on the current group. Its frames are the JAX package's
+bit for bit. Where the loader cannot be built, a pool of Python threads
+decodes with the package's Python decoder (``core/imgio.py``: ``cv2`` or
+``PIL``, both of which release the interpreter lock while they decode and
+resize), as the JAX package then does too.
 """
 
 from __future__ import annotations
@@ -16,14 +18,41 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from optflow_tpu_torch import native
 from optflow_tpu_torch.core.config import JobConfig
-from optflow_tpu_torch.core.imgio import decoder_name, read_gray, resize_scale
+from optflow_tpu_torch.core.imgio import (
+    ImageReadError,
+    decoder_name,
+    read_gray,
+    resize_scale,
+)
 
 
 def _decode(path: str, scale: float) -> np.ndarray:
     """What ``runner.FrameCache`` decodes by default: grayscale, scaled,
     float32."""
     return resize_scale(read_gray(path), scale).astype(np.float32)
+
+
+class _PythonDecoder:
+    """The Python decoder on a thread pool, behind the native loader's
+    submit / wait / close."""
+
+    def __init__(self, n_threads: int):
+        self._pool = ThreadPoolExecutor(
+            max_workers=n_threads, thread_name_prefix="optflow-decode"
+        )
+
+    def submit(self, path: str, scale: float) -> Future:
+        return self._pool.submit(_decode, path, scale)
+
+    def wait(self, future: Future) -> np.ndarray:
+        # raises what the decode raised (ImageReadError for a bad file)
+        return future.result()
+
+    def close(self) -> None:
+        """Drop what has not started, wait for what has, stop the threads."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
 
 class PrefetchLoader:
@@ -35,7 +64,10 @@ class PrefetchLoader:
     the engine's FrameCache holds only the current pair: without it every
     section is decoded several times, and every re-decode is a NEW ndarray,
     which defeats the identity-keyed device-upload cache. Returning the same
-    array object for a cached (path, scale) restores both."""
+    array object for a cached (path, scale) restores both.
+
+    ``decoder`` names what decodes: ``"native"``, or the Python decoder's
+    name when the native loader cannot be built."""
 
     def __init__(
         self,
@@ -44,14 +76,19 @@ class PrefetchLoader:
         n_threads: int = 4,
         cache_frames: int = 32,
     ):
-        self._pool = ThreadPoolExecutor(
-            max_workers=max(1, n_threads), thread_name_prefix="optflow-decode"
-        )
+        n_threads = max(1, n_threads)
+        if native.available():
+            self._decoder = native.NativeLoader(n_threads)
+            self.decoder = "native"
+        else:
+            self._decoder = _PythonDecoder(n_threads)
+            self.decoder = decoder_name()
+        self.closed = False
         # de-duplicated schedule in first-use order
         self._schedule: List[Tuple[str, float]] = list(dict.fromkeys(schedule))
         self._pos = 0
         self._lookahead = lookahead
-        self._pending: Dict[Tuple[str, float], Future] = {}
+        self._pending: Dict[Tuple[str, float], object] = {}
         self._cache: Dict[Tuple[str, float], np.ndarray] = {}
         self._cache_cap = cache_frames
         self._fill()
@@ -64,7 +101,25 @@ class PrefetchLoader:
             key = self._schedule[self._pos]
             self._pos += 1
             if key not in self._pending:
-                self._pending[key] = self._pool.submit(_decode, *key)
+                self._pending[key] = self._decoder.submit(*key)
+
+    def _take(self, key: Tuple[str, float]) -> np.ndarray:
+        handle = self._pending.pop(key, None)
+        if handle is None:
+            handle = self._decoder.submit(*key)
+        try:
+            return self._decoder.wait(handle)
+        except ImageReadError:
+            if self.decoder != "native":
+                raise
+            # The native decoder covers PNG, JPEG and TIFF; anything it
+            # cannot parse is decoded again by the Python decoder, so a
+            # format gap never skips a pair (the reference's cv::imread,
+            # src/optflow.cpp:106, reads whatever OpenCV was built with). A
+            # file that neither reads raises ImageReadError from here.
+            return _decode(*key)
+        finally:
+            self._fill()
 
     def __call__(self, path: str, scale: float) -> np.ndarray:
         key = (path, scale)
@@ -72,32 +127,34 @@ class PrefetchLoader:
         if hit is not None:
             self._cache[key] = self._cache.pop(key)  # refresh LRU position
             return hit
-        future = self._pending.pop(key, None)
-        if future is None:
-            future = self._pool.submit(_decode, path, scale)
-        try:
-            # raises what the decode raised (ImageReadError for a bad file)
-            frame = future.result()
-        finally:
-            self._fill()
+        frame = self._take(key)
         self._cache[key] = frame
         while len(self._cache) > self._cache_cap:
             self._cache.pop(next(iter(self._cache)))
         return frame
 
     def close(self) -> None:
-        """Drop what has not started, wait for what has, stop the threads."""
-        for future in self._pending.values():
-            future.cancel()
+        """Let what is pending finish or drop it, and stop the threads."""
         self._pending.clear()
-        self._pool.shutdown(wait=True)
+        self._decoder.close()
+        self.closed = True
+
+
+def frame_decoder(loader) -> Optional[str]:
+    """What decodes a runner's frames: the prefetch loader's ``decoder``;
+    the Python decoder's name where the runner decodes by itself (no
+    ``loader``); None for a caller's loader."""
+    if loader is None:
+        return decoder_name()
+    return getattr(loader, "decoder", None)
 
 
 def make_prefetch_loader(args: dict) -> Optional[PrefetchLoader]:
     """Build a prefetch loader for a job dict, or None when the job lists no
-    images or no image library is installed (callers then keep the default
-    loader, which raises at the first decode)."""
-    if decoder_name() is None:
+    images, or when the native loader cannot be built and no image library
+    is installed (callers then keep the default loader, which raises at the
+    first decode)."""
+    if not native.available() and decoder_name() is None:
         return None
     cfg = JobConfig(args)
     schedule: List[Tuple[str, float]] = []

@@ -27,7 +27,7 @@ from optflow_tpu_torch.core.config import JobConfig
 from optflow_tpu_torch.core.imgio import ImageReadError, read_gray, resize_scale
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
 from optflow_tpu_torch.engine.pair import Aligner, solve_rois
-from optflow_tpu_torch.engine.prefetch import make_prefetch_loader
+from optflow_tpu_torch.engine.prefetch import frame_decoder, make_prefetch_loader
 from optflow_tpu_torch.engine.rois import resolve_rois
 from optflow_tpu_torch.engine.sampler import move_pm
 from optflow_tpu_torch.sinks.http import make_sink
@@ -90,7 +90,7 @@ def run_job(
     any_upload_since = False
     batch_size = cfg.batch_size()
     stats = {"pairs": 0, "skipped": 0, "uploads": 0, "matches": 0,
-             "resumed": 0}
+             "resumed": 0, "decoder": frame_decoder(loader)}
 
     def flush():
         batch = args.get("point_matches", [])

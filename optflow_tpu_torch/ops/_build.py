@@ -1,13 +1,24 @@
-"""Build and load the package's CUDA sources.
+"""Build and load the package's native sources.
 
 Each ``csrc/<stem>.cu`` has a plain C interface and is compiled with ``nvcc``
-for ``sm_90a`` into a shared library that ``ctypes`` loads. The library is
-built at first use, never at import, into ``build/`` beside the package and
-is named after a hash of the source, the headers beside it and the flags, so
-an edit rebuilds and an unchanged source is reused. A failed build raises
-with the compiler's output. :func:`build_libraries` compiles several sources
-at once, one ``nvcc`` process each. :func:`enqueued` reads what the loaded
-libraries have put on the card's streams.
+for ``sm_90a`` into a shared library that ``ctypes`` loads. The host library
+of the image loader, ``native/loader.cpp`` (stem ``loader``), is compiled the
+same way with the host C++ compiler and links the image libraries. A library
+is built at first use, never at import, into ``build/`` beside the package
+and is named after a hash of the source, the headers beside it and the flags,
+so an edit rebuilds and an unchanged source is reused; nothing is written
+into the package directory. A failed build raises with the compiler's output
+and leaves it beside the library's name (:func:`error_path`), where the image
+loader reads it instead of compiling again; a successful build removes it.
+:func:`build_libraries` compiles several sources at once, one compiler
+process each. :func:`enqueued` reads what the loaded libraries have put on
+the card's streams.
+
+    python -m optflow_tpu_torch.ops._build [stem ...]
+
+builds the named libraries, or all of them, and prints where each went (it
+exits 1 when one failed, after printing the others): an installed package whose tree is read-only at run time (a container image) is
+built this way when it is installed.
 
 The wrappers are called from one thread per device (``dist/``): every build
 and load, and each wrapper's first binding of its library, holds :data:`lock`;
@@ -24,11 +35,13 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from typing import Dict, Iterable, List, Tuple
 
-CSRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "optflow_tpu_torch"
 
 NVCC_FLAGS = [
@@ -36,6 +49,12 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+# host libraries: stem -> C++ source, compiled with the flags of
+# optflow_tpu/native/Makefile, so that the loader's float arithmetic is the
+# JAX package's
+HOST_SOURCES = {"loader": PACKAGE_DIR / "native" / "loader.cpp"}
+CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+HOST_LIBS = ["-lpng", "-ljpeg", "-ltiff", "-lz", "-lpthread"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Held around every build and load, and by each wrapper while it binds its
@@ -62,18 +81,52 @@ def find_nvcc() -> str:
     )
 
 
+def find_cxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError(
+        "g++ not found: the image loader of optflow_tpu_torch is compiled "
+        "at first use and needs a host C++ compiler"
+    )
+
+
+def all_stems() -> List[str]:
+    """Every library of the package: each ``csrc/*.cu`` and the loader."""
+    return sorted(f.stem for f in CSRC_DIR.glob("*.cu")) + list(HOST_SOURCES)
+
+
 def library_path(stem: str) -> pathlib.Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update((CSRC_DIR / f"{stem}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    host = HOST_SOURCES.get(stem)
+    if host is not None:
+        digest = hashlib.sha256(" ".join(CXX_FLAGS + HOST_LIBS).encode())
+        digest.update(host.read_bytes())
+    else:
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        digest.update((CSRC_DIR / f"{stem}.cu").read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
+def error_path(stem: str) -> pathlib.Path:
+    """Where the last failed build of ``stem``'s current source and flags
+    left the compiler's output."""
+    return library_path(stem).with_suffix(".err")
+
+
+def compile_command(stem: str, out: pathlib.Path) -> List[str]:
+    host = HOST_SOURCES.get(stem)
+    if host is not None:
+        return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(host), *HOST_LIBS]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out),
+            str(CSRC_DIR / f"{stem}.cu")]
+
+
 def build_libraries(stems: Iterable[str]) -> None:
-    """Compile every library of ``stems`` that is not built yet, all ``nvcc``
-    processes started together. Raises ``RuntimeError`` with nvcc's output
-    when a build fails."""
+    """Compile every library of ``stems`` that is not built yet, all compiler
+    processes started together. Raises ``RuntimeError`` with the compiler's
+    output when a build fails, after writing it to :func:`error_path`."""
     with lock:
         started: List[Tuple[str, pathlib.Path, pathlib.Path, list,
                             subprocess.Popen]] = []
@@ -84,31 +137,35 @@ def build_libraries(stems: Iterable[str]) -> None:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC_DIR / f"{stem}.cu")]
+            cmd = compile_command(stem, tmp)
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             started.append((stem, out, tmp, cmd, proc))
         failures = []
         for stem, out, tmp, cmd, proc in started:
             log, _ = proc.communicate()
+            err = out.with_suffix(".err")
             if proc.returncode != 0:
                 failures.append(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+                    f"{os.path.basename(cmd[0])} failed ({proc.returncode}): "
+                    f"{' '.join(cmd)}\n{log}"
                 )
+                err.write_text(failures[-1])
                 continue
             os.replace(tmp, out)
+            err.unlink(missing_ok=True)
             build_seconds[stem] = time.perf_counter() - t0
-            # registers / shared memory / spills of every kernel, for the
-            # reader
+            # registers / shared memory / spills of every kernel (nvcc) or
+            # the warnings (g++), for the reader
             out.with_suffix(".log").write_text(log)
         if failures:
             raise RuntimeError("\n".join(failures))
 
 
 def load_library(stem: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<stem>.cu``, compiled if it is not built
-    yet. Raises ``RuntimeError`` with nvcc's output when the build fails."""
+    """The shared library of ``stem``, compiled if it is not built yet.
+    Raises ``RuntimeError`` with the compiler's output when the build
+    fails."""
     with lock:
         lib = _loaded.get(stem)
         if lib is None:
@@ -177,3 +234,31 @@ class counted_launches:
     @property
     def last_steps(self):
         return getattr(self._last, "steps", None)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Build the libraries of optflow_tpu_torch into "
+        f"{BUILD_DIR} and print where each went.")
+    parser.add_argument("stems", nargs="*", metavar="stem",
+                        help="libraries to build (default: all of them: "
+                        + ", ".join(all_stems()) + ")")
+    ns = parser.parse_args(argv)
+    stems = ns.stems or all_stems()
+    unknown = sorted(set(stems) - set(all_stems()))
+    if unknown:
+        parser.error(f"unknown libraries {unknown}")
+    try:
+        build_libraries(stems)
+    except RuntimeError as e:  # the others were built all the same
+        print(e, file=sys.stderr)
+    built = [stem for stem in stems if library_path(stem).exists()]
+    for stem in built:
+        print(f"{stem}: {library_path(stem)}")
+    return 0 if len(built) == len(stems) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -410,29 +410,32 @@ def _write_pngs(tmp_path, n):
 
 def test_prefetch_loader_matches_the_jax_package(tmp_path):
     """PrefetchLoader against the JAX package's on the same PNG files: the
-    same frames in the same order (within one gray level: that package
-    decodes and resizes with its own native code, this one with cv2), the
-    same array object for a repeated key while it is cached, a new one once
-    it has been evicted, and close() leaves no thread behind."""
+    same frames in the same order, bit for bit (both decode and resize with
+    the same native loader), the same array object for a repeated key while
+    it is cached, a new one once it has been evicted, and close() leaves no
+    thread behind."""
     import threading
 
     from optflow_tpu.engine.prefetch import PrefetchLoader as JaxPrefetch
     from optflow_tpu.native import available
+    from optflow_tpu_torch import native
     from optflow_tpu_torch.engine.prefetch import PrefetchLoader
 
     assert available(), "the JAX package's native loader did not build"
+    assert native.available(), native.build_error()
     paths = _write_pngs(tmp_path, 5)
     order = [0, 1, 1, 2, 0, 3, 4, 1]
     schedule = [(paths[k], 0.5) for k in order]
     port = PrefetchLoader(schedule, lookahead=3, n_threads=2, cache_frames=3)
     ref = JaxPrefetch(schedule, lookahead=3, n_threads=2, cache_frames=3)
+    assert port.decoder == "native"
     got, want = [], []
     for path, scale in schedule:
         got.append(port(path, scale))
         want.append(ref(path, scale))
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == np.float32 and a.shape == b.shape == (32, 48)
-        assert np.abs(a - b).max() <= 1.0
+        assert np.abs(a - b).max() == 0.0
     for frames_ in (got, want):
         assert frames_[2] is frames_[1]  # cache hit: the same object
         assert frames_[4] is frames_[0]  # still cached after 3 distinct keys
@@ -485,7 +488,7 @@ def test_prefetch_is_wired_into_the_runners(tmp_path, monkeypatch):
     stats = trn.run_job(job(), device="cpu")
     assert (stats["pairs"], stats["skipped"]) == (2, 1)
     assert len(made) == 2 and all(m is not None for m in made)
-    assert all(m._pool._shutdown for m in made)  # closed by the runner
+    assert all(m.closed for m in made)  # closed by the runner
     assert (tmp_path / "out" / "c_1.00_x.tiff").exists()
     tbr.run_job_batched(job(pair_batch=2, prefetch=False), device="cpu")
     trn.run_job(job(), device="cpu", loader=tbr.FrameCache()._loader)

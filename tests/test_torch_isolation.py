@@ -45,6 +45,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch.dist.tiled\n"
         "import optflow_tpu_torch.align.distributed\n"
         "import optflow_tpu_torch.cli.run_pod\n"
+        "import optflow_tpu_torch.native\n"
+        "import optflow_tpu_torch.ops._build\n"
+        # builds (or finds) and loads the port's own loader library
+        "assert optflow_tpu_torch.native.available()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'optflow_tpu' or "
         "m.startswith('optflow_tpu.'))\n"
@@ -84,7 +88,8 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "align/average_flow.py", "sinks/render_client.py",
             "tools/gen_pairs.py", "tools/upload_matches.py",
             "dist/__init__.py", "dist/mesh.py", "dist/scheduler.py",
-            "dist/tiled.py", "align/distributed.py", "cli/run_pod.py"} <= rel
+            "dist/tiled.py", "align/distributed.py", "cli/run_pod.py",
+            "native/__init__.py", "ops/_build.py"} <= rel
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -178,3 +183,24 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_the_loader_is_the_ports_own_copy():
+    """The port compiles its own native/loader.cpp into its build directory:
+    it never loads the JAX package's libofloader.so or runs its Makefile."""
+    from optflow_tpu_torch import native
+    from optflow_tpu_torch.ops import _build
+
+    text = (ROOT / "optflow_tpu_torch" / "native" / "__init__.py").read_text()
+    assert "libofloader" not in text and "make" not in text.split()
+    assert _build.HOST_SOURCES["loader"] == (
+        ROOT / "optflow_tpu_torch" / "native" / "loader.cpp")
+    assert native.available(), native.build_error()
+    path = _build.library_path("loader")
+    assert path.parent == ROOT / "build" / "optflow_tpu_torch"
+    assert path.exists()
+    # the same C ABI and the same arithmetic as the JAX package's copy
+    port = (ROOT / "optflow_tpu_torch" / "native" / "loader.cpp").read_text()
+    ref = (ROOT / "optflow_tpu" / "native" / "loader.cpp").read_text()
+    body = ref[ref.index("#include <cmath>"):]
+    assert port.endswith(body)
