@@ -27,8 +27,9 @@ PyTorch version on the card:
   1024x2048 section, ``run_job_batched`` on a pairs mesh (the level and
   blocked kernels once for each device and each tile), the sharded
   alignment solves, and two processes of the pod launcher;
-- the native image loader, which decodes every job's frames from files,
-  and the deploy recipe: a wheel installed apart, which builds every kernel
+- the native image loader, or its header-free resize behind cv2's decode
+  where the loader cannot be built, which decodes every job's frames from
+  files, and the deploy recipe: a wheel installed apart, which builds every kernel
   and the loader from its own sources and runs a job on the card.
 
 Needs no file from outside the repository and no network: frames are
@@ -42,13 +43,17 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
   device   a CUDA device must be present (never carries on on the CPU)
   build    compile (one nvcc per source, together) and load the five
            kernel libraries from optflow_tpu_torch/csrc; then the image
-           loader (g++, native/loader.cpp): its seconds and its command
-  decode   the native image loader on the card machine's host: PNG, JPEG and
-           8- and 16-bit TIFF frames of 1024x2048 and two odd sizes at scales
+           loader (g++, native/loader.cpp) and its header-free resize
+           (native/frame.cpp): their seconds, commands and errors
+  decode   the prefetch loader's native route on the card machine's host:
+           the image loader, or where its image headers are missing the
+           header-free route (cv2 decodes, frame.cpp resizes; a failed build
+           of it where g++ is fails the run): PNG, JPEG and 8- and 16-bit
+           gray and RGB TIFF frames of 1024x2048 and two odd sizes at scales
            1 and 0.5 against loader.cpp restated in numpy (0.0; JPEG against
            the Python decoder within 6 gray levels on the mean), the odd
            sizes' shapes against the lround rule, and frames a second of the
-           loader and of the Python decoder's pool, 8 threads each, in turns
+           route and of the Python decoder's pool, 8 threads each, in turns
   kernels  each kernel against its plain version on the card, with
            tolerances; the level kernel also against the blocked kernel (bit
            for bit); the blocked kernel also against the per-chunk kernel it
@@ -78,8 +83,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            same job once more on the warm card
   cli      the same job (16 pairs) from PNG files through the CLI, when an
            image library (cv2 or PIL) is installed; else a printed skip. Its
-           `done:` line must name the native loader, or the Python decoder
-           where the loader cannot build
+           `done:` line must name the decode phase's route (`native` or
+           `native-resize`), or the Python decoder where neither runs
   section  tvl1_flow_batched at (4, 512, 1024) and (1, 1024, 1024) with a
            line naming the kernel that solved each level and the iterations
            it computed; then a `map` job
@@ -118,8 +123,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            two processes of optflow_tpu_torch.cli.run_pod on a 16-pair PNG
            job
   install  deploy/bootstrap_venv_torch.sh --device cuda: the wheel, an
-           isolated install, its console scripts, every kernel and the loader
-           built from the installed tree, and a 2-pair PNG job of 1024x2048
+           isolated install, its console scripts, every kernel and the host
+           libraries of the decode route built from the installed tree, and a
+           2-pair PNG job of 1024x2048
            sections through the installed CLI on the card (at least 10
            launches of the level kernel, the decode phase's decoder, no JAX)
 
@@ -472,6 +478,7 @@ def phase_build():
     )
 
     from optflow_tpu_torch import native
+    from optflow_tpu_torch.native import frame
 
     stems = KERNEL_STEMS
     t0 = time.perf_counter()
@@ -480,18 +487,21 @@ def phase_build():
                 tvl1_ablate_cuda, smem_cap_cuda):
         mod._library()
     secs = time.perf_counter() - t0
-    # the image loader, with the host compiler, after the kernels so that its
-    # seconds are its own; a failure is the decode phase's to judge
-    t0 = time.perf_counter()
-    native.available()
-    loader_path = _build.library_path("loader")
-    loader = {
-        "library": os.path.relpath(loader_path, os.getcwd()),
-        "compiled": "loader" in _build.build_seconds,
-        "seconds": time.perf_counter() - t0,
-        "command": " ".join(_build.compile_command("loader", loader_path)),
-        "error": native.build_error(),
-    }
+    # the image loader and its header-free resize, with the host compiler,
+    # after the kernels so that their seconds are their own; a failure is the
+    # decode phase's to judge
+    host = {}
+    for stem, mod in (("loader", native), ("frame", frame)):
+        t0 = time.perf_counter()
+        error = mod.build_error()
+        path = _build.library_path(stem)
+        host[stem] = {
+            "library": os.path.relpath(path, os.getcwd()),
+            "compiled": stem in _build.build_seconds,
+            "seconds": time.perf_counter() - t0,
+            "command": " ".join(_build.compile_command(stem, path)),
+            "error": error,
+        }
     libs = {}
     for stem in stems:
         path = _build.library_path(stem)
@@ -505,7 +515,7 @@ def phase_build():
                       if "registers" in ln or "spill" in ln][-16:],
         }
     emit({"phase": "build", "seconds": round(secs, 3), "libraries": libs,
-          "loader": loader})
+          **host})
 
 
 # decode phase: frames of the job's source geometry, and two sizes whose
@@ -546,12 +556,15 @@ def loader_resize(img, scale):
     return top + wy[:, None] * (bot - top)
 
 
-def loader_tiff_luma(gray8):
-    """``decode_tiff``'s BT.601 luma of a gray pixel (r = g = b), rounded to
-    the nearest even as ``std::nearbyint`` does, in float32."""
+def loader_tiff_luma(r, g=None, b=None):
+    """``decode_tiff``'s BT.601 luma of 8-bit samples (a gray image: r = g =
+    b), rounded to the nearest even as ``std::nearbyint`` does, in float32
+    and in the source's order of operations."""
     f32 = np.float32
-    v = gray8.astype(f32)
-    return np.rint(f32(0.299) * v + f32(0.587) * v + f32(0.114) * v)
+    r = r.astype(f32)
+    g = r if g is None else g.astype(f32)
+    b = r if b is None else b.astype(f32)
+    return np.rint(f32(0.299) * r + f32(0.587) * g + f32(0.114) * b)
 
 
 def write_image(path, arr, **jpeg):
@@ -561,20 +574,45 @@ def write_image(path, arr, **jpeg):
     except ImportError:
         from PIL import Image
 
-        Image.fromarray(arr).save(path, **jpeg)
+        rgb = arr[..., ::-1] if arr.ndim == 3 else arr  # from OpenCV's order
+        Image.fromarray(np.ascontiguousarray(rgb)).save(path, **jpeg)
         return
     params = [cv2.IMWRITE_JPEG_QUALITY, jpeg["quality"]] if jpeg else []
     if not cv2.imwrite(path, arr, params):
         fail(f"could not write {path}")
 
 
+def decode_route():
+    """The prefetch loader's route on this machine and its decoder (submit /
+    wait / close): the native loader where it builds, else the header-free
+    route where the host compiler is (a failed build of it fails the run),
+    else (None, None)."""
+    from optflow_tpu_torch import native
+    from optflow_tpu_torch.engine import prefetch
+    from optflow_tpu_torch.native import frame
+
+    if native.available():
+        return "native", native.NativeLoader(DECODE_THREADS)
+    try:
+        if frame.available():
+            return "native-resize", prefetch._PoolDecoder(frame.load,
+                                                          DECODE_THREADS)
+    except RuntimeError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr, flush=True)
+        fail("decode: the host compiler is here, and the header-free frame "
+             "library did not build")
+    return None, None
+
+
 def phase_decode(tmp):
-    """The native image loader on the card machine's host: its frames held
-    against the numpy restatement of loader.cpp (0.0 for PNG and TIFF, the
-    Python decoder's within 6 gray levels on the mean for JPEG) at scales 1
-    and 0.5, the shapes of the odd sizes, and frames a second of the loader
-    and of the Python decoder's pool, both with DECODE_THREADS threads.
-    These are host CPU times, not the card's."""
+    """The prefetch loader's native route on the card machine's host: the
+    native loader, or where its image headers are missing the header-free
+    route (cv2 decodes, native/frame.cpp resizes). Its frames held against
+    the numpy restatement of loader.cpp (0.0 for PNG and TIFF, the Python
+    decoder's within 6 gray levels on the mean for JPEG) at scales 1 and
+    0.5, the shapes of the odd sizes, and frames a second of the route and
+    of the Python decoder's pool, both with DECODE_THREADS threads. These
+    are host CPU times, not the card's."""
     import math
     from concurrent.futures import ThreadPoolExecutor
 
@@ -582,7 +620,6 @@ def phase_decode(tmp):
 
     from optflow_tpu_torch import native
     from optflow_tpu_torch.core import imgio
-    from optflow_tpu_torch.engine import prefetch
 
     folder = os.path.join(tmp, "decode")
     os.makedirs(folder)
@@ -602,6 +639,10 @@ def phase_decode(tmp):
     # (kind, path, the decode restated, the source)
     cases = [("png", pngs[z], frames[z].astype(np.float32)) for z in range(4)]
     for z in range(4):
+        # an RGB section: three channels the luma weighs apart (written in
+        # OpenCV's order, blue first)
+        red, green, blue = frames[z], 255 - frames[z], frames[z] // 2
+        bgr = np.ascontiguousarray(np.dstack([blue, green, red]))
         for kind, ext, arr, want in (
                 ("jpeg", "jpg", frames[z], None),
                 ("tiff8", "tiff", frames[z], loader_tiff_luma(frames[z])),
@@ -609,7 +650,10 @@ def phase_decode(tmp):
                 # sample, whether it keeps the high byte or rounds v / 257
                 ("tiff16", "tiff",
                  frames[z].astype(np.uint16) * 257 + z,
-                 loader_tiff_luma(frames[z]))):
+                 loader_tiff_luma(frames[z])),
+                ("tiff_rgb8", "tiff", bgr, loader_tiff_luma(red, green, blue)),
+                ("tiff_rgb16", "tiff", bgr.astype(np.uint16) * 257 + z,
+                 loader_tiff_luma(red, green, blue))):
             path = os.path.join(folder, f"{kind}_{z}.{ext}")
             write_image(path, arr, **({"quality": 95} if kind == "jpeg"
                                       else {}))
@@ -631,41 +675,49 @@ def phase_decode(tmp):
 
     def pool_all():
         with ThreadPoolExecutor(DECODE_THREADS) as pool:
-            return list(pool.map(prefetch._decode, pngs, [SCALE] * len(pngs)))
+            return list(pool.map(imgio.read_gray_scaled, pngs,
+                                 [SCALE] * len(pngs)))
 
-    # host clocks vary: the two decoders are timed in turns (pool, native,
-    # native, pool) and each reads the mean of its two rates
+    # host clocks vary: the route and the pool are timed in turns (pool,
+    # route, route, pool) and each reads the mean of its two rates
     pool_fps = [fps(pool_all)[0]]
     line = {"phase": "decode", "host": "the card machine's CPU",
             "threads": DECODE_THREADS, "frames": DECODE_FRAMES,
             "frame": [SRC_H, SRC_W], "scale": SCALE,
-            "python_decoder": imgio.decoder_name(), "write_s": write_s}
+            "python_decoder": imgio.decoder_name(),
+            "cv2": getattr(imgio._get_cv2(), "__version__", None),
+            "write_s": write_s, "native": native.available()}
     if not native.available():
         error = native.build_error()
         print(f"chip_smoke: the native loader did not build:\n{error}",
               file=sys.stderr, flush=True)
-        header = native.missing_header()
-        pool_fps.append(fps(pool_all)[0])
-        emit({**line, "native": False, "build_error": error[-2000:],
-              "missing_header": header,
-              "pool_frames_per_s": float(np.mean(pool_fps))})
-        if header is None:
+        line.update(build_error=error[-2000:],
+                    missing_header=native.missing_header())
+        if line["missing_header"] is None:
+            emit(line)
             fail("decode: the native loader did not build, and no header it "
                  "needs is missing")
+    route, decoder = decode_route()
+    if decoder is None:  # no host compiler or no cv2: the pool alone
+        pool_fps.append(fps(pool_all)[0])
+        emit({**line, "route": imgio.decoder_name(),
+              "pool_frames_per_s": float(np.mean(pool_fps))})
         return
-    loader = native.NativeLoader(DECODE_THREADS)
     try:
-        def native_all():
-            ids = [loader.submit(p, SCALE) for p in pngs]
-            return [loader.wait(i) for i in ids]
+        def route_all():
+            handles = [decoder.submit(p, SCALE) for p in pngs]
+            return [decoder.wait(h) for h in handles]
 
-        native_fps, got = fps(native_all)
-        native_fps = [native_fps, fps(native_all)[0]]
+        def load(path, scale):
+            return decoder.wait(decoder.submit(path, scale))
+
+        route_fps, got = fps(route_all)
+        route_fps = [route_fps, fps(route_all)[0]]
         pool_fps.append(fps(pool_all)[0])
         errs = {}
         for scale in (1.0, SCALE):
             for kind, path, want in cases:
-                out = loader.load(path, scale)
+                out = load(path, scale)
                 if want is None:  # JPEG: the Python decoder's decode
                     want = imgio.read_gray(path).astype(np.float32)
                     err = float(np.abs(out - loader_resize(want, scale))
@@ -683,23 +735,23 @@ def phase_decode(tmp):
                     int(math.floor(float(np.float32(w) * np.float32(SCALE))
                                    + 0.5)))
             shapes[f"{h}x{w}"] = {
-                "native": list(loader.load(path, SCALE).shape),
+                "route": list(load(path, SCALE).shape),
                 "lround": list(want),
-                "python": list(prefetch._decode(path, SCALE).shape)}
+                "python": list(imgio.read_gray_scaled(path, SCALE).shape)}
     finally:
-        loader.close()
-    emit({**line, "native": True,
-          "native_frames_per_s": float(np.mean(native_fps)),
+        decoder.close()
+    emit({**line, "route": route,
+          "route_frames_per_s": float(np.mean(route_fps)),
           "pool_frames_per_s": float(np.mean(pool_fps)),
-          "turns_frames_per_s": [pool_fps[0], *native_fps, pool_fps[1]],
+          "turns_frames_per_s": [pool_fps[0], *route_fps, pool_fps[1]],
           "err": errs, "err_is": "max abs; mean abs for jpeg",
           "gates": {"png, tiff": 0.0, "jpeg": 6.0}, "shapes": shapes})
     bad = [k for k, e in errs.items()
            if not (e < 6.0 if k.startswith("jpeg") else e == 0.0)]
     if bad:
-        fail(f"decode: the loader's frames differ from loader.cpp restated: "
+        fail(f"decode: the {route} frames differ from loader.cpp restated: "
              f"{ {k: errs[k] for k in bad} }")
-    if any(v["native"] != v["lround"] for v in shapes.values()):
+    if any(v["route"] != v["lround"] for v in shapes.values()):
         fail(f"decode: odd sizes off the lround rule: {shapes}")
     if len(got) != DECODE_FRAMES or any(
             g.shape != (SECTION_H, SECTION_W) for g in got):
@@ -2181,11 +2233,15 @@ def run_cli(job, tmp, tag, extra_args=()):
 def expected_decoder():
     """The decoder a job's prefetch loader uses on this machine: the native
     loader where it builds (the decode phase fails where it does not and no
-    header is missing), else the Python decoder."""
+    header is missing), else the header-free route where the host compiler
+    is (it raises where that does not build), else the Python decoder."""
     from optflow_tpu_torch import native
     from optflow_tpu_torch.core import imgio
+    from optflow_tpu_torch.native import frame
 
-    return "native" if native.available() else imgio.decoder_name()
+    if native.available():
+        return "native"
+    return "native-resize" if frame.available() else imgio.decoder_name()
 
 
 def phase_cli(results, tmp):
@@ -2209,7 +2265,7 @@ def phase_cli(results, tmp):
     found = re.search(r"'tvl1_level_solve': (\d+)", last_line)
     launches = int(found.group(1)) if found else None
     # the decoder the CLI's runner used, from its `done:` line
-    found = re.search(r"'decoder': '(\w+)'", last_line)
+    found = re.search(r"'decoder': '([\w-]+)'", last_line)
     used = found.group(1) if found else None
     expected = expected_decoder()
     decode_s = re.search(r"'decode_s': ([0-9.e-]+)", last_line)
@@ -4088,8 +4144,8 @@ def phase_dist(results, tmp):
 
 def phase_install(tmp):
     """deploy/bootstrap_venv_torch.sh with the card: the wheel, an isolated
-    install and its console scripts, every kernel and the loader built from
-    the installed tree's own sources, and a 2-pair PNG `flow` job at scale
+    install and its console scripts, every kernel and the host libraries
+    built from the installed tree's own sources, and a 2-pair PNG `flow` job at scale
     0.5 through the installed CLI on the card, with no JAX imported."""
     import importlib.util
 
@@ -4118,7 +4174,7 @@ def phase_install(tmp):
     done = done[-1] if done else ""
     found = re.search(r"'tvl1_level_solve': (\d+)", done)
     launches = int(found.group(1)) if found else None
-    found = re.search(r"'decoder': '(\w+)'", done)
+    found = re.search(r"'decoder': '([\w-]+)'", done)
     decoder = found.group(1) if found else None
     emit({**line, "rc": proc.returncode, "wall_s": wall,
           "seconds": {m.group(1): float(m.group(2)) for m in re.finditer(
@@ -4142,7 +4198,10 @@ def phase_install(tmp):
              f"{expected}")
     built = {stem for stem, _ in re.findall(r"^(\w+): (\S+\.so)$", out,
                                             re.MULTILINE)}
-    want = set(KERNEL_STEMS) | ({"loader"} if expected == "native" else set())
+    # the host libraries each route decodes with (the bootstrap builds the
+    # header-free one wherever the host compiler is)
+    host = {"native": {"loader", "frame"}, "native-resize": {"frame"}}
+    want = set(KERNEL_STEMS) | host.get(expected, set())
     if not want <= built:
         fail(f"install: {sorted(want - built)} not built from the installed "
              "tree")

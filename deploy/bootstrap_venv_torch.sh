@@ -2,8 +2,8 @@
 # Clean-environment install + smoke run of the PyTorch/CUDA port: the
 # validation layer for its container recipe (optflow_tpu_torch.def). The def
 # file's %post installs the system libraries and torch, `pip install`s this
-# repo without deps, and prebuilds every kernel and the image loader with
-# `python3 -m optflow_tpu_torch.ops._build`; its %runscript is
+# repo without deps, and prebuilds every kernel, the image loader and its
+# header-free resize with `python3 -m optflow_tpu_torch.ops._build`; its %runscript is
 # `optflow-torch job.json`. This script performs the same sequence against an
 # isolated install prefix and runs a real job through the INSTALLED console
 # script (not the source tree), so packaging faults (a source missing from
@@ -16,10 +16,12 @@
 # prove. No container runtime is needed.
 #
 # Usage: bash deploy/bootstrap_venv_torch.sh [workdir] [--device cuda|cpu]
-#   cuda (default): builds every kernel and the loader, runs the job on the
-#                   card; cpu: builds the loader only (no nvcc needed) and
-#                   runs the job's plain versions on the CPU. The loader is
-#                   left out, and said so, where its headers are missing.
+#   cuda (default): builds every kernel and the host libraries, runs the
+#                   job on the card; cpu: builds the host libraries only (no
+#                   nvcc needed) and runs the job's plain versions on the
+#                   CPU. The loader is left out, and said so, where its
+#                   headers are missing: jobs then decode through the
+#                   header-free resize (`frame`), which every build needs.
 set -euo pipefail
 
 REPO="$(cd "$(dirname "$0")/.." && pwd)"
@@ -89,7 +91,7 @@ names = set(zipfile.ZipFile(wheel).namelist())
 port = pathlib.Path(repo) / "optflow_tpu_torch"
 want = {f"optflow_tpu_torch/{p.relative_to(port)}" for p in
         [*port.glob("csrc/*.cu"), *port.glob("csrc/*.cuh"),
-         port / "native" / "loader.cpp"]}
+         *port.glob("native/*.cpp")]}
 missing = sorted(want - names)
 assert not missing, f"the wheel lacks {missing}"
 dist = md.distribution("optflow_tpu")
@@ -124,12 +126,13 @@ if [ "$DEVICE" = cuda ]; then  # every kernel: csrc/<stem>.cu
 fi
 # The image loader includes the headers of libpng, libjpeg and libtiff
 # (optflow_tpu_torch.def installs them). On a machine without them the port
-# decodes with its Python decoder, the prefetch loader's own fallback: this
-# step then names the missing header, and the job's `done:` line names the
-# decoder it used. Any other failed build fails the step.
+# decodes with cv2 and the loader's resize (`frame`, which includes no image
+# header): this step then names the missing header, and the job's `done:`
+# line names the route it used (`native-resize`). Any other failed build
+# fails the step.
 # shellcheck disable=SC2086  # one argument a library
 if ! PYTHONPATH="$WORK/install" $PY -m optflow_tpu_torch.ops._build \
-        $STEMS loader > "$WORK/built.txt" 2> "$WORK/build.err"; then
+        $STEMS loader frame > "$WORK/built.txt" 2> "$WORK/build.err"; then
     # shellcheck disable=SC2086
     PYTHONPATH="$WORK/install" $PY - "$WORK/build.err" $STEMS <<'EOF_PY'
 import sys
@@ -140,7 +143,7 @@ from optflow_tpu_torch.ops import _build
 log, kernels = sys.argv[1], sys.argv[2:]
 header = native.missing_header()  # from the failure the build recorded
 if header is None or not all(_build.library_path(s).exists()
-                             for s in kernels):
+                             for s in [*kernels, "frame"]):
     sys.exit(open(log).read())
 print(f"   loader: not built, this machine lacks {header}")
 EOF_PY

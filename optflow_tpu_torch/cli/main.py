@@ -12,6 +12,7 @@ match store.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -100,8 +101,9 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--profile-dir",
-        default=None,
-        help="write a torch.profiler Chrome trace of the whole job here",
+        default=os.environ.get("OPTFLOW_TPU_PROFILE_DIR") or None,
+        help="write a torch.profiler Chrome trace of the whole job here; "
+        "also settable via OPTFLOW_TPU_PROFILE_DIR",
     )
     parser.add_argument(
         "--device",

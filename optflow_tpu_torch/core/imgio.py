@@ -109,6 +109,12 @@ def resize_scale(im: np.ndarray, scale: float) -> np.ndarray:
         return np.asarray(pim.resize((new_w, new_h), pil.BILINEAR))
 
 
+def read_gray_scaled(path: str, scale: float) -> np.ndarray:
+    """Decode + rescale, returned as float32 (0..255): the Python decoder's
+    frame, what a job decodes where no native route runs."""
+    return resize_scale(read_gray(path), scale).astype(np.float32)
+
+
 def write_float_tiff(path: str, arr: np.ndarray) -> None:
     """Write a float32 single-channel TIFF (ref: cv::imwrite of CV_32FC1,
     src/optflow.cpp:482-483)."""

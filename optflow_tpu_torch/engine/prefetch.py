@@ -2,19 +2,30 @@
 
 The reference's pair loop decodes synchronously between GPU solves
 (src/optflow.cpp:106-125); its only overlap is the LRU-of-2 frame swap.
-Here the job's full image schedule is known up front, so the native threaded
-loader (``native/``) decodes ``lookahead`` upcoming frames in the background
-while the GPU works on the current group. Its frames are the JAX package's
-bit for bit. Where the loader cannot be built, a pool of Python threads
-decodes with the package's Python decoder (``core/imgio.py``: ``cv2`` or
-``PIL``, both of which release the interpreter lock while they decode and
-resize), as the JAX package then does too.
+Here the job's full image schedule is known up front, so ``lookahead``
+upcoming frames are decoded in the background while the GPU works on the
+current group, by the first route this machine can run:
+
+- ``"native"``: the native threaded loader (``native/loader.cpp``), whose
+  frames are the JAX package's bit for bit;
+- ``"native-resize"``, where the loader cannot be built for want of the
+  image libraries: cv2 decodes and ``native/frame.cpp``, the loader's resize
+  and TIFF luma without the image headers, reduces, on a pool of Python
+  threads (``native/frame.py``); its frames are the loader's bit for bit;
+- where there is no host compiler, or no cv2: the package's Python decoder
+  (``core/imgio.py``: cv2 or PIL) on a pool of Python threads, as the JAX
+  package then does too.
+
+cv2, PIL and the ctypes calls all release the interpreter lock while they
+decode and resize. Where the host compiler is there and the header-free
+library does not build, building the prefetch loader raises with the
+compiler's message.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -23,28 +34,24 @@ from optflow_tpu_torch.core.config import JobConfig
 from optflow_tpu_torch.core.imgio import (
     ImageReadError,
     decoder_name,
-    read_gray,
-    resize_scale,
+    read_gray_scaled,
 )
+from optflow_tpu_torch.native import frame
 
 
-def _decode(path: str, scale: float) -> np.ndarray:
-    """What ``runner.FrameCache`` decodes by default: grayscale, scaled,
-    float32."""
-    return resize_scale(read_gray(path), scale).astype(np.float32)
-
-
-class _PythonDecoder:
-    """The Python decoder on a thread pool, behind the native loader's
+class _PoolDecoder:
+    """A decode function on a thread pool, behind the native loader's
     submit / wait / close."""
 
-    def __init__(self, n_threads: int):
+    def __init__(self, decode: Callable[[str, float], np.ndarray],
+                 n_threads: int):
+        self._decode = decode
         self._pool = ThreadPoolExecutor(
             max_workers=n_threads, thread_name_prefix="optflow-decode"
         )
 
     def submit(self, path: str, scale: float) -> Future:
-        return self._pool.submit(_decode, path, scale)
+        return self._pool.submit(self._decode, path, scale)
 
     def wait(self, future: Future) -> np.ndarray:
         # raises what the decode raised (ImageReadError for a bad file)
@@ -66,8 +73,8 @@ class PrefetchLoader:
     which defeats the identity-keyed device-upload cache. Returning the same
     array object for a cached (path, scale) restores both.
 
-    ``decoder`` names what decodes: ``"native"``, or the Python decoder's
-    name when the native loader cannot be built."""
+    ``decoder`` names the route that decodes: ``"native"``,
+    ``"native-resize"``, or the Python decoder's name."""
 
     def __init__(
         self,
@@ -80,8 +87,11 @@ class PrefetchLoader:
         if native.available():
             self._decoder = native.NativeLoader(n_threads)
             self.decoder = "native"
+        elif frame.available():
+            self._decoder = _PoolDecoder(frame.load, n_threads)
+            self.decoder = "native-resize"
         else:
-            self._decoder = _PythonDecoder(n_threads)
+            self._decoder = _PoolDecoder(read_gray_scaled, n_threads)
             self.decoder = decoder_name()
         self.closed = False
         # de-duplicated schedule in first-use order
@@ -110,14 +120,14 @@ class PrefetchLoader:
         try:
             return self._decoder.wait(handle)
         except ImageReadError:
-            if self.decoder != "native":
+            if self.decoder not in ("native", "native-resize"):
                 raise
-            # The native decoder covers PNG, JPEG and TIFF; anything it
+            # The native routes cover PNG, JPEG and TIFF; anything they
             # cannot parse is decoded again by the Python decoder, so a
             # format gap never skips a pair (the reference's cv::imread,
             # src/optflow.cpp:106, reads whatever OpenCV was built with). A
             # file that neither reads raises ImageReadError from here.
-            return _decode(*key)
+            return read_gray_scaled(*key)
         finally:
             self._fill()
 

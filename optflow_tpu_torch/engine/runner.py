@@ -24,7 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from optflow_tpu_torch.core.config import JobConfig
-from optflow_tpu_torch.core.imgio import ImageReadError, read_gray, resize_scale
+from optflow_tpu_torch.core.imgio import ImageReadError, read_gray_scaled
 from optflow_tpu_torch.engine.journal import JobJournal, pair_key, pair_key_aliases
 from optflow_tpu_torch.engine.pair import Aligner, solve_rois
 from optflow_tpu_torch.engine.prefetch import frame_decoder, make_prefetch_loader
@@ -40,11 +40,7 @@ class FrameCache:
     generalized to key on (path, scale)."""
 
     def __init__(self, loader=None):
-        self._loader = loader or (
-            lambda path, scale: resize_scale(read_gray(path), scale).astype(
-                np.float32
-            )
-        )
+        self._loader = loader or read_gray_scaled
         self._frames: Dict[tuple, np.ndarray] = {}
 
     def get_pair(self, p: str, q: str, scale: float):

@@ -1,9 +1,11 @@
 """Build and load the package's native sources.
 
 Each ``csrc/<stem>.cu`` has a plain C interface and is compiled with ``nvcc``
-for ``sm_90a`` into a shared library that ``ctypes`` loads. The host library
-of the image loader, ``native/loader.cpp`` (stem ``loader``), is compiled the
-same way with the host C++ compiler and links the image libraries. A library
+for ``sm_90a`` into a shared library that ``ctypes`` loads. The host libraries
+are compiled the same way with the host C++ compiler: the image loader,
+``native/loader.cpp`` (stem ``loader``), which links the image libraries, and
+the loader's resize and TIFF luma alone, ``native/frame.cpp`` (stem
+``frame``), which needs no library and no image header. A library
 is built at first use, never at import, into ``build/`` beside the package
 and is named after a hash of the source, the headers beside it and the flags,
 so an edit rebuilds and an unchanged source is reused; nothing is written
@@ -52,9 +54,11 @@ NVCC_FLAGS = [
 # host libraries: stem -> C++ source, compiled with the flags of
 # optflow_tpu/native/Makefile, so that the loader's float arithmetic is the
 # JAX package's
-HOST_SOURCES = {"loader": PACKAGE_DIR / "native" / "loader.cpp"}
+HOST_SOURCES = {"loader": PACKAGE_DIR / "native" / "loader.cpp",
+                "frame": PACKAGE_DIR / "native" / "frame.cpp"}
 CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall", "-shared"]
-HOST_LIBS = ["-lpng", "-ljpeg", "-ltiff", "-lz", "-lpthread"]
+# what a host library links: the image libraries are the loader's alone
+HOST_LIBS = {"loader": ["-lpng", "-ljpeg", "-ltiff", "-lz", "-lpthread"]}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Held around every build and load, and by each wrapper while it binds its
@@ -86,20 +90,22 @@ def find_cxx() -> str:
     if found:
         return found
     raise RuntimeError(
-        "g++ not found: the image loader of optflow_tpu_torch is compiled "
-        "at first use and needs a host C++ compiler"
+        "g++ not found: the image loader of optflow_tpu_torch and its "
+        "resize are compiled at first use and need a host C++ compiler"
     )
 
 
 def all_stems() -> List[str]:
-    """Every library of the package: each ``csrc/*.cu`` and the loader."""
+    """Every library of the package: each ``csrc/*.cu`` and the host
+    libraries."""
     return sorted(f.stem for f in CSRC_DIR.glob("*.cu")) + list(HOST_SOURCES)
 
 
 def library_path(stem: str) -> pathlib.Path:
     host = HOST_SOURCES.get(stem)
     if host is not None:
-        digest = hashlib.sha256(" ".join(CXX_FLAGS + HOST_LIBS).encode())
+        digest = hashlib.sha256(
+            " ".join(CXX_FLAGS + HOST_LIBS.get(stem, [])).encode())
         digest.update(host.read_bytes())
     else:
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -118,7 +124,8 @@ def error_path(stem: str) -> pathlib.Path:
 def compile_command(stem: str, out: pathlib.Path) -> List[str]:
     host = HOST_SOURCES.get(stem)
     if host is not None:
-        return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(host), *HOST_LIBS]
+        return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(host),
+                *HOST_LIBS.get(stem, [])]
     return [find_nvcc(), *NVCC_FLAGS, "-o", str(out),
             str(CSRC_DIR / f"{stem}.cu")]
 

@@ -56,9 +56,11 @@ def test_bootstrap_installs_and_runs_a_job_on_the_cpu(bootstrap):
     assert "'pairs': 2" in done[0] and "'skipped': 0" in done[0]
     for step in ("wheel", "install", "scripts", "build", "job"):
         assert f"   {step}: " in out
-    built = list((work / "install" / "build" / "optflow_tpu_torch").glob(
-        "libloader_*.so"))
-    assert len(built) == 1
+    for stem in ("loader", "frame"):  # the host libraries, from the install
+        built = list((work / "install" / "build" / "optflow_tpu_torch").glob(
+            f"lib{stem}_*.so"))
+        assert len(built) == 1, stem
+        assert f"{stem}: {built[0]}" in out
     assert sorted(p.name for p in (work / "out").iterdir()) == [
         f"s{z}_0.50_{c}.tiff" for z in range(2) for c in "xy"]
 
@@ -70,8 +72,8 @@ def test_the_wheel_ships_every_native_source_and_the_port_scripts(bootstrap):
     names = set(zipfile.ZipFile(wheel).namelist())
     port = ROOT / "optflow_tpu_torch"
     sources = [*port.glob("csrc/*.cu"), *port.glob("csrc/*.cuh"),
-               port / "native" / "loader.cpp"]
-    assert len(sources) == 8
+               port / "native" / "loader.cpp", port / "native" / "frame.cpp"]
+    assert len(sources) == 9
     for src in sources:
         assert f"optflow_tpu_torch/{src.relative_to(port)}" in names
     (entry,) = [n for n in names if n.endswith(".dist-info/entry_points.txt")]
@@ -96,6 +98,8 @@ def test_the_container_recipe_prebuilds_every_library():
     assert "jax" not in post  # the port's image installs no JAX
     for lib in ("libpng-dev", "libjpeg-dev", "libtiff-dev", "g++"):
         assert lib in post
+    # builds the header-free resize with the rest (all of them, no stems)
+    assert "python3 -m optflow_tpu_torch.ops._build\n" in post
     assert 'exec optflow-torch "$@"' in text.split("\n%runscript\n", 1)[1]
     run_job = (ROOT / "deploy" / "run_job_torch.sh").read_text()
     assert 'python -m optflow_tpu_torch.cli.main "$@"' in run_job

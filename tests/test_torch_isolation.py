@@ -46,6 +46,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch.align.distributed\n"
         "import optflow_tpu_torch.cli.run_pod\n"
         "import optflow_tpu_torch.native\n"
+        "import optflow_tpu_torch.native.frame\n"
         "import optflow_tpu_torch.ops._build\n"
         # builds (or finds) and loads the port's own loader library
         "assert optflow_tpu_torch.native.available()\n"

@@ -405,14 +405,17 @@ def test_scale_half_job_equals_the_jax_package(tmp_path, monkeypatch):
 
 
 def test_python_pool_when_the_loader_cannot_build(tmp_path, rng, monkeypatch):
-    """Without the native library the prefetch loader keeps the Python
-    decoder on a thread pool, names it, and raises for an unreadable file
-    (there is nothing to fall back to)."""
+    """Without the native library and without the header-free route (no
+    host compiler) the prefetch loader keeps the Python decoder on a thread
+    pool, names it, and raises for an unreadable file (there is nothing to
+    fall back to)."""
     import threading
 
     from optflow_tpu_torch.engine import prefetch
+    from optflow_tpu_torch.native import frame
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(frame, "available", lambda: False)
     arr = rng.integers(0, 255, size=(30, 40), dtype=np.uint8)
     p = str(tmp_path / "x.png")
     _write_png(p, arr)
@@ -517,7 +520,7 @@ def test_the_build_command_names_every_library(capsys):
 
     stems = _build.all_stems()
     assert stems == ["smem_cap", "tvl1_ablate", "tvl1_blocked", "tvl1_chunk",
-                     "tvl1_level", "loader"]
+                     "tvl1_level", "loader", "frame"]
     assert _build.main(["loader"]) == 0  # built already: nothing to compile
     assert capsys.readouterr().out == (
         f"loader: {_build.library_path('loader')}\n")
