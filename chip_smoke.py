@@ -9,8 +9,8 @@ PyTorch version on the card:
   ``run_job_batched`` (2 strips x 16 pairs = 32 images of 256x1024): the
   level kernel;
 - full-section solves and style-1 ``map`` / ``flow`` jobs of 512x1024 frames
-  (1024x2048 sections at scale 0.5): the blocked level kernel at the levels
-  above the fused budget;
+  (1024x2048 sections at scale 0.5): the level kernel at every level, the
+  finest ones included, held against the plain solver on the card;
 - the per-level API, ``tvl1_flow(level_solver=default_level_solver(...))``:
   the chunk kernel's level entry;
 - the two measurement tools, ``tools.kernel_ablate`` and ``tools.smem_cap``:
@@ -24,8 +24,8 @@ PyTorch version on the card:
   ``optflow align``;
 - distribution over a mesh of the visible cards, or of one card entered
   four times: the pair scheduler, the row-tiled halo solve of a full
-  1024x2048 section, ``run_job_batched`` on a pairs mesh (the level and
-  blocked kernels once for each device and each tile), the sharded
+  1024x2048 section, ``run_job_batched`` on a pairs mesh (the level kernel
+  once for each device and each tile), the sharded
   alignment solves, and two processes of the pod launcher;
 - the native image loader, or its header-free resize behind cv2's decode
   where the loader cannot be built, which decodes every job's frames from
@@ -56,9 +56,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            route and of the Python decoder's pool, 8 threads each, in turns
   kernels  each kernel against its plain version on the card, with
            tolerances; the level kernel also against the blocked kernel (bit
-           for bit); the blocked kernel also against the per-chunk kernel it
-           replaced (the library's second entry point: bit for bit, and
-           timed in turns old, new, new, old); the chunk kernel's level
+           for bit; the blocked kernel, which no main path launches, counts
+           its launches here); the chunk kernel's level
            entry, also against the level loop it replaced (PyTorch warp
            and the sweep entry, in turns), and its single chunk; the
            ablation kernel at its tool's shape and count, its launches on
@@ -85,11 +84,15 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            image library (cv2 or PIL) is installed; else a printed skip. Its
            `done:` line must name the decode phase's route (`native` or
            `native-resize`), or the Python decoder where neither runs
-  section  tvl1_flow_batched at (4, 512, 1024) and (1, 1024, 1024) with a
-           line naming the kernel that solved each level and the iterations
-           it computed; then a `map` job
-           of 8 full-section pairs and a `flow` job of 2 through
-           run_job_batched, TIFFs written, read back and gated
+  section  tvl1_flow_batched at (4, 512, 1024) and (1, 1024, 1024): the
+           wrapper that launched each level (the level kernel at every
+           level, the blocked kernel never), the iterations it computed
+           (never fewer than counted), each level within 1e-3 px of the
+           plain level solve on its own inputs and the whole flow within
+           SECTION_VS_PLAIN_PX of the plain solver on the card, with equal
+           counts at every level; then
+           a `map` job of 8 full-section pairs and a `flow` job of 2
+           through run_job_batched, TIFFs written, read back and gated
   level_api  tvl1_flow with the chunk-kernel level solver at 512x1024: one
            call into the chunk library and at most two launches per level
   features feature pre-alignment: the frame-deduplicated aligner on a
@@ -113,9 +116,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            (a line says which): 32 strip pairs through PairScheduler against
            one batched call (flows, counts, launches); a 1024x2048 section
            through tiled_tvl1_flow over 4 rows against the monolithic solve
-           (every row, the seams included), ring against gather, the kernel
-           of each window level, and one window's two finest levels (B) and
-           two of A's against the plain versions on the same inputs; the
+           (every row, the seams included), ring against gather, the level
+           kernel at every window level, and one window's finest, second and
+           coarsest level against the plain version on the same inputs; the
            64-pair job through run_job_batched on 4 pairs devices against
            the one-device run; the sharded z-block (float64 solutions and
            the mesh call's transforms) and CG solves (4 runs each, distance
@@ -200,28 +203,34 @@ WARP_FLOPS_PER_PX = 2 + 4 + 4 + 2 + 22 + 4 + 30 + 5  # = 73
 # The gradient: 0.5*(r - l) and 0.5*(d - u)
 GRAD_FLOPS_PER_PX = 4
 
-# every kernel of the port: its source, and the body of the TPU kernel it
-# replaces
+# every kernel of the port: its source, the body of the TPU kernel it
+# replaces, and the phases whose launches the kernels line counts (its main
+# paths; the blocked kernel has none)
 KERNELS = {
     "tvl1_level_solve": {
         "source": "optflow_tpu_torch/csrc/tvl1_level.cu",
         "replaces": "optflow_tpu/ops/tvl1_pallas.py:226",
+        "launches_on": "job, section map job, style2, dist",
     },
     "tvl1_blocked_level_solve": {
         "source": "optflow_tpu_torch/csrc/tvl1_blocked.cu",
         "replaces": "optflow_tpu/ops/tvl1_pallas.py:777",
+        "launches_on": "kernels",
     },
     "tvl1_chunk": {
         "source": "optflow_tpu_torch/csrc/tvl1_chunk.cu",
         "replaces": "optflow_tpu/ops/tvl1_pallas.py:1250",
+        "launches_on": "level_api",
     },
     "tvl1_ablate_chunks": {
         "source": "optflow_tpu_torch/csrc/tvl1_ablate.cu",
         "replaces": "tools_kernel_ablate.py:39",
+        "launches_on": "ablate",
     },
     "smem_fill_mean": {
         "source": "optflow_tpu_torch/csrc/smem_cap.cu",
         "replaces": "tools/probes/r4_vmem_cap.py:17",
+        "launches_on": "smem_cap",
     },
 }
 # One multiprocessor's shared memory moves 32 banks x 4 B a clock; the clock
@@ -239,6 +248,15 @@ STRIP = 256
 SECTION_H, SECTION_W = int(SRC_H * SCALE), int(SRC_W * SCALE)  # 512 x 1024
 # section phase: the two full-section solves, (batch, height, width)
 SECTION_SOLVES = ((4, SECTION_H, SECTION_W), (1, 1024, 1024))
+# A whole section pyramid against the plain solver on the card, every
+# level's count equal. Each level, held at 1e-3 px on its own inputs,
+# rounds otherwise than plain (FMA contraction in the kernel); over ten
+# levels that compounds to 1.94e-3 px at the worst of 2 M pixels at
+# (4, 512, 1024) on an H100 (5.6e-6 px in the mean). 0.01 px is the
+# tolerance of the repo's other whole-pyramid comparisons on the card
+# (`style2`, the card-marked test in tests/test_torch_align.py); an exit
+# rule that stops elsewhere moves the flow by ~0.1 px.
+SECTION_VS_PLAIN_PX = 1e-2
 DX_STEP, DY_STEP = 2.2, -1.2  # per z step, full-res px
 MAX_DZ = 3
 # style2 phase: 13 sections of the job phase's geometry give 7 outputs (each
@@ -759,6 +777,7 @@ def phase_decode(tmp):
 
 
 def phase_kernels(results):
+    zero_launch_counts()
     results["kernel_cases"] = {
         "tvl1_level_solve": kernels_level(),
         "tvl1_blocked_level_solve": kernels_blocked(),
@@ -766,6 +785,10 @@ def phase_kernels(results):
         "tvl1_ablate_chunks": kernels_ablate(),
         "smem_fill_mean": kernels_smem(),
     }
+    # no main path launches the blocked kernel: its launches are this
+    # phase's, against its plain version, the level kernel and itself
+    results.setdefault("launches", {})["tvl1_blocked_level_solve"] = (
+        read_launch_counts()["tvl1_blocked_level_solve"])
 
 
 def time_in_turns(old_fn, new_fn, reps=2):
@@ -1006,18 +1029,16 @@ def eps_exit_inputs(dev, h, w):
 
 def kernels_blocked():
     """The blocked level kernel (csrc/tvl1_blocked.cu: the persistent grid
-    with an exit every k = 16 iterations) against its plain version, the
-    per-chunk kernel it replaces (the library's second entry point, timed
-    beside it in turns) and the level kernel, at a full section's finest
-    level and at a level only 2-D tiling can take, 2 x 32 iterations and
-    full counts."""
+    with an exit every k = 16 iterations, the counterpart of the JAX
+    package's blocked kernel; no main path launches it) against its plain
+    version and the level kernel, at a full section's finest level and at a
+    level only 2-D tiling can take, 2 x 32 iterations and full counts."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
         BLOCKED_K,
         tvl1_blocked_level_solve,
-        tvl1_blocked_level_solve_per_chunk,
         tvl1_blocked_level_solve_plain,
     )
     from optflow_tpu_torch.ops.tvl1_cuda import (
@@ -1026,12 +1047,11 @@ def kernels_blocked():
     )
 
     new = tvl1_blocked_level_solve
-    old = tvl1_blocked_level_solve_per_chunk
     dev = torch.device("cuda")
     # Fixed counts, epsilon 0: kernel, plain version and level kernel do the
     # same float32 arithmetic (FMA contraction and the order of nothing
-    # else differ), 64 accumulating iterations. The replaced kernel and the
-    # level kernel run the same device code on the same tiles' pixels: 0.0.
+    # else differ), 64 accumulating iterations. The level kernel runs the
+    # same device code on the same tiles' pixels: 0.0.
     tol = 1e-3
     fixed = TVL1Params(nscales=1, warps=2, iterations=32, epsilon=0.0)
     full = TVL1Params(nscales=1)
@@ -1050,41 +1070,31 @@ def kernels_blocked():
         if new.launches != before + 1:
             fail("the blocked wrapper did not count its launch")
         p = tvl1_blocked_level_solve_plain(*args, fixed)
-        o = old(*args, fixed)
         a = tvl1_level_solve(*args, fixed)
         again = new(*args, fixed)
         torch.cuda.synchronize()
-        if new.launches != before + 2:
-            fail("the replaced kernel's entry point counted as a launch")
         diff = flow_diff(k, p)
         finite = bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all())
-        old_ms, ms, turns = time_in_turns(lambda: old(*args, fixed),
-                                          lambda: new(*args, fixed))
+        ms = time_cuda(lambda: new(*args, fixed), 3)
         a_ms = time_cuda(lambda: tvl1_level_solve(*args, fixed), 3)
         plain_ms = time_cuda(
             lambda: tvl1_blocked_level_solve_plain(*args, fixed), 1)
         bound, bound_by = level_bound_ms(n, h, w, fixed.warps,
                                          int(k[2].sum()))
         launched, memops = enqueued_launches(lambda: new(*args, fixed))
-        old_launched, old_memops = enqueued_launches(
-            lambda: old(*args, fixed))
         case = {
             "kernel": "tvl1_blocked_level_solve", "shape": list(shape),
             "warps": fixed.warps, "iterations": fixed.iterations,
             "k": BLOCKED_K, "epsilon": 0.0, "max_abs_du": diff,
-            "max_abs_du_vs_replaced_kernel": flow_diff(k, o),
             "max_abs_du_vs_level_kernel": flow_diff(k, a), "tolerance": tol,
             "flow_moved_px": max_abs_diff(k[0], args[2]),
             "rerun_bit_identical": all(
                 torch.equal(x, y) for x, y in zip(k, again)),
             "iters": k[2].tolist(), "kernel_ms": ms,
-            "replaced_kernel_ms": old_ms, "ms_old_new_new_old": turns,
             "level_kernel_ms": a_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             # kernels and memsets/copies of one call, tallied by the library
             "device_launches": launched, "device_memops": memops,
-            "replaced_kernel_device_launches": old_launched,
-            "replaced_kernel_device_memops": old_memops,
             "grid_steps": steps, "grid_blocks": grid,
             "grid_steps_at_most":
             level_max_steps(fixed.warps, fixed.iterations, BLOCKED_K),
@@ -1094,14 +1104,12 @@ def kernels_blocked():
             emit({"phase": "kernels", "cases": cases})
             fail(f"blocked kernel at {shape}: max|du| {diff} against its "
                  f"plain version, tolerance {tol}")
-        if case["max_abs_du_vs_replaced_kernel"] != 0.0 \
-                or case["max_abs_du_vs_level_kernel"] != 0.0 \
+        if case["max_abs_du_vs_level_kernel"] != 0.0 \
                 or not case["rerun_bit_identical"]:
             emit({"phase": "kernels", "cases": cases})
-            fail(f"at epsilon 0 the blocked kernel must equal the kernel it "
-                 f"replaces, the level kernel and its own rerun bit for bit "
-                 f"at {shape}")
-        if not all(torch.equal(k[2], x[2]) for x in (p, o, a)) \
+            fail(f"at epsilon 0 the blocked kernel must equal the level "
+                 f"kernel and its own rerun bit for bit at {shape}")
+        if not all(torch.equal(k[2], x[2]) for x in (p, a)) \
                 or case["flow_moved_px"] < 1e-3 or launched != 1:
             emit({"phase": "kernels", "cases": cases})
             fail(f"blocked kernel iteration count, flow update or launches "
@@ -1109,65 +1117,51 @@ def kernels_blocked():
         if main_case is None:
             main_case = case
 
-        # Full counts, epsilon 0.01. The new kernel adds a test's tile sums
-        # in tile order on tiles of even height, the replaced one in a block
-        # reduction on 32-row tiles, the plain version in PyTorch's order:
-        # an image within rounding of its threshold may stop one chunk
-        # (k iterations) apart. Reported; gated at one image at most, and the
-        # flow of the images whose counts agree equal to the replaced
-        # kernel's bit for bit. Nothing is speculated: iterations computed
-        # equal those counted.
+        # Full counts, epsilon 0.01. The kernel adds a test's tile sums in
+        # tile order on tiles of even height, the plain version in
+        # PyTorch's order: an image within rounding of its threshold may
+        # stop one chunk (k iterations) apart. Reported; gated at one image
+        # at most. Nothing is speculated: iterations computed equal those
+        # counted.
         k = new(*args, full)
         work = new.last_work
         steps, grid = new.last_steps[:2].tolist()
         again = new(*args, full)
-        o = old(*args, full)
         p = tvl1_blocked_level_solve_plain(*args, full)
         torch.cuda.synchronize()
-        old_ms, ms, turns = time_in_turns(lambda: old(*args, full),
-                                          lambda: new(*args, full))
+        ms = time_cuda(lambda: new(*args, full), 2)
         plain_ms = time_cuda(
             lambda: tvl1_blocked_level_solve_plain(*args, full), 1)
         bound, bound_by = level_bound_ms(n, h, w, full.warps, int(k[2].sum()))
         launched, memops = enqueued_launches(lambda: new(*args, full))
-        agree = k[2] == o[2]
         eps_case = {
             "kernel": "tvl1_blocked_level_solve", "shape": list(shape),
             "warps": full.warps, "iterations": full.iterations,
             "k": BLOCKED_K, "epsilon": full.epsilon,
             "iters_kernel": k[2].tolist(), "iters_plain": p[2].tolist(),
-            "iters_replaced_kernel": o[2].tolist(),
             "iters_computed": work[0].tolist(),
             "max_abs_du": flow_diff(k, p), "tolerance": tol,
-            "max_abs_du_vs_replaced_kernel_where_counts_agree":
-            flow_diff((k[0][agree], k[1][agree]), (o[0][agree], o[1][agree]))
-            if bool(agree.any()) else None,
             "rerun_bit_identical": all(
                 torch.equal(x, y) for x, y in zip(k, again)),
-            "kernel_ms": ms, "replaced_kernel_ms": old_ms,
-            "ms_old_new_new_old": turns, "plain_ms": plain_ms,
+            "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             "device_launches": launched, "device_memops": memops,
             "grid_steps": steps, "grid_blocks": grid,
         }
         cases.append(eps_case)
-        for name, counts in (("plain", p[2]), ("replaced_kernel", o[2])):
-            apart = (k[2] - counts).abs()
-            eps_case[f"iters_apart_{name}_max_images"] = [
-                int(apart.max()), int((apart > 0).sum())]
-            if int(apart.max()) > BLOCKED_K or int((apart > 0).sum()) > 1:
-                emit({"phase": "kernels", "cases": cases})
-                fail(f"blocked kernel counts at {shape} differ from the "
-                     f"{name}'s: {k[2].tolist()} vs {counts.tolist()}")
-        if not eps_case["rerun_bit_identical"] \
-                or not torch.equal(work[0], k[2]) \
-                or eps_case["max_abs_du_vs_replaced_kernel_where_counts_agree"] \
-                not in (0.0, None):
+        apart = (k[2] - p[2]).abs()
+        eps_case["iters_apart_plain_max_images"] = [
+            int(apart.max()), int((apart > 0).sum())]
+        if int(apart.max()) > BLOCKED_K or int((apart > 0).sum()) > 1:
             emit({"phase": "kernels", "cases": cases})
-            fail(f"blocked kernel at full counts at {shape}: a rerun, the "
-                 f"iterations computed or the flow of agreeing images "
-                 f"differ")
-        del args, k, p, o, a, again
+            fail(f"blocked kernel counts at {shape} differ from the plain "
+                 f"version's: {k[2].tolist()} vs {p[2].tolist()}")
+        if not eps_case["rerun_bit_identical"] \
+                or not torch.equal(work[0], k[2]):
+            emit({"phase": "kernels", "cases": cases})
+            fail(f"blocked kernel at full counts at {shape}: a rerun or the "
+                 f"iterations computed differ")
+        del args, k, p, a, again
 
     # The per-image exit at full counts. Kernel and plain version test the
     # same rule (after every k-th iteration, on that iteration's error), so
@@ -2325,14 +2319,20 @@ def gate_tiffs(job, output_type, border=16):
 
 
 def phase_section(results, tmp):
-    """Full sections: every level above the fused budget goes to the blocked
-    kernel, the rest to the level kernel."""
+    """Full sections: the level kernel at every level, the finest ones
+    included, each section solve held against the plain solver on the card;
+    then style-1 jobs of whole sections."""
     import torch
 
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.engine.batch_runner import run_job_batched
-    from optflow_tpu_torch.ops import tvl1_blocked_cuda, tvl1_cuda
-    from optflow_tpu_torch.ops.tvl1 import solve_pyramid, tvl1_flow_batched
+    from optflow_tpu_torch.ops import tvl1_cuda
+    from optflow_tpu_torch.ops.tvl1 import (
+        get_last_iteration_stats,
+        level_solve_plain,
+        solve_pyramid,
+        tvl1_flow_batched,
+    )
 
     dev = torch.device("cuda")
     params = TVL1Params()  # reference defaults
@@ -2344,6 +2344,7 @@ def phase_section(results, tmp):
         flow = tvl1_flow_batched(i0, i1, params)  # the entry point, checked
         torch.cuda.synchronize()
         counts = read_launch_counts()
+        iters = [it.tolist() for _, it in get_last_iteration_stats()]
         epe = float(torch.hypot(flow[..., 0] - DX, flow[..., 1] - DY).mean())
 
         # the same solve once more, each level's kernel call timed
@@ -2353,13 +2354,10 @@ def phase_section(results, tmp):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = tvl1_cuda._kernel_level_solver(a, b, u1, u2, p, u3)
+            out = tvl1_cuda._level_solver(a, b, u1, u2, p, u3)
             end.record()
-            blocked = tvl1_cuda.takes_blocked_kernel(*a.shape[-2:])
-            work = (tvl1_blocked_cuda.tvl1_blocked_level_solve if blocked
-                    else tvl1_cuda.tvl1_level_solve).last_work
-            records.append((tuple(a.shape), start, end, out[3], blocked,
-                            work))
+            records.append((tuple(a.shape), start, end, out[3],
+                            tvl1_cuda.tvl1_level_solve.last_work))
             return out
 
         torch.cuda.synchronize()
@@ -2368,40 +2366,87 @@ def phase_section(results, tmp):
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+
+        # and once more, untimed: the wrapper that launched each level, read
+        # from the launch counts, and the level's inputs and results (the
+        # solver makes new tensors at every level) for the plain level solve
+        checked = []
+
+        def recording(a, b, u1, u2, p, u3):
+            before = read_launch_counts()
+            out = tvl1_cuda._level_solver(a, b, u1, u2, p, u3)
+            after = read_launch_counts()
+            checked.append(([k for k in after if after[k] != before[k]],
+                            (a, b, u1, u2), out))
+            return out
+
+        solve_pyramid(i0, i1, params, None, recording)
         levels = []
-        for (ln, lh, lw), start, end, iters, blocked, work in records:
-            total = int(iters.sum())
+        for ((ln, lh, lw), start, end, it, work), (kernels, ins, out) in zip(
+                records, checked):
+            total = int(it.sum())
             bound, bound_by = level_bound_ms(ln, lh, lw, params.warps, total)
+            p1, p2, pit = tvl1_cuda.tvl1_level_solve_plain(*ins, params)
             levels.append({
-                "shape": [ln, lh, lw], "kernel":
-                "tvl1_blocked_level_solve" if blocked else "tvl1_level_solve",
+                "shape": [ln, lh, lw], "kernels": kernels,
                 "kernel_ms": start.elapsed_time(end), "iters_sum": total,
-                # chunks run past an exit and replays included; none for the
-                # blocked kernel, whose tests fall on chunk ends
+                # chunks run past an exit and replays included: never fewer
+                # than the iterations counted
                 "iters_computed_sum": int(work[0].sum()),
-                "iters_max": int(iters.max()), "bound_ms": bound,
+                "iters_computed_at_least_counted":
+                bool((work[0] >= it).all()),
+                "iters_max": int(it.max()), "bound_ms": bound,
                 "bound_by": bound_by,
+                "vs_plain_same_inputs_max_abs_px":
+                flow_diff(out[:2], (p1, p2)),
+                "iters_equal_plain_same_inputs":
+                bool(torch.equal(out[3], pit)),
             })
+        # the plain solver on the same card and inputs: the exit after every
+        # iteration at every level, as the kernel's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = solve_pyramid(i0, i1, params, None, level_solve_plain)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_iters = [it.tolist() for _, it in get_last_iteration_stats()]
+        plain_diff = max_abs_diff(flow, plain)
+        plain_mean = float((flow - plain).abs().mean())
         emit({"phase": "section", "shape": [n, h, w], "epe_px": epe,
               "gate_px": 0.5, "solve_ms": ms, "enqueue_ms": enqueue_ms,
               "mp_pairs_per_s": n * h * w / 1e6 / (ms / 1e3),
               "launches": counts,
               "rerun_max_abs_diff": max_abs_diff(flow, flow2),
-              "levels": levels})
+              "plain_solve_ms": plain_ms, "vs_plain_max_abs_px": plain_diff,
+              "vs_plain_mean_abs_px": plain_mean,
+              "vs_plain_tolerance": SECTION_VS_PLAIN_PX,
+              "level_vs_plain_tolerance": 1e-3, "iters_per_level": iters,
+              "iters_per_level_plain": plain_iters, "levels": levels})
         if tuple(flow.shape) != (n, h, w, 2) or not bool(
                 torch.isfinite(flow).all()):
             fail(f"section flow at {(n, h, w)}: wrong shape or not finite")
-        if counts["tvl1_blocked_level_solve"] < 1:
-            fail(f"the {(n, h, w)} solve did not launch the blocked kernel")
-        if counts["tvl1_level_solve"] < 1:
-            fail(f"the {(n, h, w)} solve did not launch the level kernel")
-        if any(l["iters_computed_sum"] != l["iters_sum"] for l in levels
-               if l["kernel"] == "tvl1_blocked_level_solve"):
-            fail(f"the blocked kernel's levels of the {(n, h, w)} solve "
-                 f"computed other iterations than they counted")
+        if counts["tvl1_blocked_level_solve"] != 0 \
+                or counts["tvl1_level_solve"] != len(levels):
+            fail(f"the {(n, h, w)} solve launched {counts}, expected the "
+                 f"level kernel at each of its {len(levels)} levels and the "
+                 "blocked kernel never")
+        if any(l["kernels"] != ["tvl1_level_solve"]
+               or not l["iters_computed_at_least_counted"] for l in levels):
+            fail(f"a level of the {(n, h, w)} solve was not solved by one "
+                 f"launch of the level kernel, or computed fewer iterations "
+                 f"than it counted: {levels}")
+        if any(not l["vs_plain_same_inputs_max_abs_px"] <= 1e-3
+               or not l["iters_equal_plain_same_inputs"] for l in levels):
+            fail(f"a level of the {(n, h, w)} solve is more than 1e-3 px "
+                 f"from the plain level solve on its own inputs, or counted "
+                 f"other iterations: {levels}")
+        if not plain_diff <= SECTION_VS_PLAIN_PX or iters != plain_iters:
+            fail(f"section solve at {(n, h, w)}: {plain_diff} px from the "
+                 f"plain solver (tolerance {SECTION_VS_PLAIN_PX}), counts "
+                 f"{iters} against {plain_iters}")
         if not epe <= 0.5:
             fail(f"section solve at {(n, h, w)}: mean EPE {epe} > 0.5 px")
-        del i0, i1, flow, flow2
+        del i0, i1, flow, flow2, plain
 
     # style-1 jobs of whole sections with TIFF output, frames from memory
     n_frames = 8 // MAX_DZ + MAX_DZ + 1
@@ -2436,15 +2481,19 @@ def phase_section(results, tmp):
               "timing": stats["timing"]})
         if stats["batched"] != n_pairs or stats["sequential"] != 0:
             fail(f"expected all {n_pairs} {output_type} pairs batched: {stats}")
-        if counts["tvl1_blocked_level_solve"] < 1:
-            fail(f"the {output_type} job did not launch the blocked kernel")
+        if counts["tvl1_level_solve"] < 1 \
+                or counts["tvl1_blocked_level_solve"] != 0:
+            fail(f"the {output_type} job launched {counts}, expected the "
+                 "level kernel and never the blocked kernel")
         if not str(stats.get("solve_device", "")).startswith("cuda"):
             fail(f"the {output_type} job ran on {stats.get('solve_device')}")
         if not max(errs) <= 0.5:
             fail(f"{output_type} job: field error {max(errs)} > 0.5 px")
         if output_type == "map":
-            results.setdefault("launches", {})[
-                "tvl1_blocked_level_solve"] = counts["tvl1_blocked_level_solve"]
+            launches = results.setdefault("launches", {})
+            launches["tvl1_level_solve"] = (
+                launches.get("tvl1_level_solve", 0)
+                + counts["tvl1_level_solve"])
 
 
 def phase_level_api(results):
@@ -2944,7 +2993,7 @@ def phase_style2(results, tmp):
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.ops import tvl1 as tv
     from optflow_tpu_torch.ops.pyramid import resize_bilinear
-    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_exact_cuda
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_batched_cuda
     from optflow_tpu_torch.utils.metrics import StageTimer
 
     decoder = imgio.decoder_name()
@@ -3026,8 +3075,8 @@ def phase_style2(results, tmp):
     sh = (SECTION_H, SECTION_W)
     f_s = resize_bilinear(frame, sh)[None]
     b_s = resize_bilinear(blur, sh)[None]
-    t_exact = time_cuda(lambda: tvl1_flow_exact_cuda(f_s, b_s, params), 1)
-    exact = tvl1_flow_exact_cuda(f_s, b_s, params)
+    t_exact = time_cuda(lambda: tvl1_flow_batched_cuda(f_s, b_s, params), 1)
+    exact = tvl1_flow_batched_cuda(f_s, b_s, params)
     exact_iters = [int(it.sum()) for _, it in tv.get_last_iteration_stats()]
     t0 = time.perf_counter()
     plain = tv.solve_pyramid(f_s, b_s, params, None, tv.level_solve_plain)
@@ -3591,10 +3640,8 @@ def dist_tiled(devs, sections):
     from optflow_tpu_torch.dist.mesh import make_pair_mesh
     from optflow_tpu_torch.ops import tvl1_cuda
     from optflow_tpu_torch.ops.pyramid import pyramid_shapes
-    from optflow_tpu_torch.ops.tvl1_cuda import (
-        takes_blocked_kernel,
-        tvl1_flow_batched_cuda,
-    )
+    from optflow_tpu_torch.ops.tvl1 import get_last_iteration_stats
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_batched_cuda
 
     params = TVL1Params()
     mesh = make_pair_mesh(1, len(devs), devices=devs)
@@ -3605,9 +3652,7 @@ def dist_tiled(devs, sections):
     block = h // n_rows
     halo = tiled.default_halo(params, 8.0, h, w)
     win = block + 2 * halo
-    kinds = ["blocked" if takes_blocked_kernel(*shape) else "level"
-             for shape in pyramid_shapes(win, w, params.nscales,
-                                         params.scale_step)]
+    n_levels = len(pyramid_shapes(win, w, params.nscales, params.scale_step))
 
     def mono_call():
         return tvl1_flow_batched_cuda(torch.from_numpy(im0)[None].cuda(),
@@ -3617,7 +3662,7 @@ def dist_tiled(devs, sections):
     mono = mono_call()
     # the gather run keeps every window's level solves (inputs and the
     # kernels' results) for the check against the plain versions below
-    solver, calls, lock = tvl1_cuda._kernel_level_solver, [], threading.Lock()
+    solver, calls, lock = tvl1_cuda._level_solver, [], threading.Lock()
 
     def recording(i0, i1, u1, u2, p, u3):
         out = solver(i0, i1, u1, u2, p, u3)
@@ -3627,12 +3672,12 @@ def dist_tiled(devs, sections):
                           [out[0].clone(), out[1].clone(), out[3].clone()]))
         return out
 
-    tvl1_cuda._kernel_level_solver = recording
+    tvl1_cuda._level_solver = recording
     try:
         gathered = tiled.tiled_tvl1_flow(im0, im1, params, mesh,
                                          neighbor_exchange=False)
     finally:
-        tvl1_cuda._kernel_level_solver = solver
+        tvl1_cuda._level_solver = solver
     # the main path: counts set to 0 just before, read just after
     zero_launch_counts()
     torch.cuda.synchronize()
@@ -3649,8 +3694,13 @@ def dist_tiled(devs, sections):
     t0 = time.perf_counter()
     mono_call().cpu()
     mono_ms = (time.perf_counter() - t0) * 1e3
+    # the monolithic solve alone, by events on the card, and its levels'
+    # iteration counts
+    a, b = (torch.from_numpy(im)[None].cuda() for im in (im0, im1))
+    mono_device_ms = time_cuda(lambda: tvl1_flow_batched_cuda(a, b, params), 1)
+    mono_iters = [int(it.sum()) for _, it in get_last_iteration_stats()]
 
-    window_levels = window_levels_vs_plain(calls, im0[:win], kinds, params)
+    window_levels = window_levels_vs_plain(calls, im0[:win], params)
     diff = (flow - mono).abs()
     seams = [d * block + k for d in range(1, n_rows) for k in (-1, 0)]
     f = flow.cpu().numpy()
@@ -3664,32 +3714,28 @@ def dist_tiled(devs, sections):
         "epe_gate_px": 0.5, "finite": bool(np.isfinite(f).all()),
         "ring_equals_gather": bool(torch.equal(flow, gathered)),
         "clip_fraction": clip, "halo_shortfall": shortfall,
-        "window_level_kernels": kinds,
+        "window_levels": n_levels,
         "window_levels_vs_plain": window_levels,
         "level_kernel_launches": launches["tvl1_level_solve"],
         "blocked_kernel_launches": launches["tvl1_blocked_level_solve"],
-        "expected_launches": {"level": n_rows * kinds.count("level"),
-                              "blocked": n_rows * kinds.count("blocked")},
+        "expected_launches": {"level": n_rows * n_levels, "blocked": 0},
         "device_launches": kernels, "device_memops": memops,
         "tiled_ms": tiled_ms, "monolithic_ms": mono_ms,
+        "monolithic_device_ms": mono_device_ms,
+        "monolithic_iters_per_level": mono_iters,
     }, launches
 
 
-def window_levels_vs_plain(calls, top, kinds, params):
+def window_levels_vs_plain(calls, top, params):
     """The first window's (rows 0..) level solves, as the tiled solve's
-    kernels computed them, against the plain versions on the same inputs:
-    B at the window's two finest levels, A at its finest and its coarsest
-    own level. ``calls`` are (thread, inputs, kernel results) of every
+    kernels computed them, against the plain version on the same inputs:
+    the window's finest, second and coarsest level, every one the level
+    kernel's. ``calls`` are (thread, inputs, kernel results) of every
     window's levels, coarsest first; ``top`` the image rows of the first
-    window; ``kinds`` each window level's kernel, finest first. Each level
-    is also solved again by its kernel, which must repeat the tiled
-    solve's result bit for bit."""
+    window. Each level is also solved again by the kernel, which must repeat
+    the tiled solve's result bit for bit."""
     import torch
 
-    from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
-        tvl1_blocked_level_solve,
-        tvl1_blocked_level_solve_plain,
-    )
     from optflow_tpu_torch.ops.tvl1_cuda import (
         tvl1_level_solve,
         tvl1_level_solve_plain,
@@ -3699,19 +3745,14 @@ def window_levels_vs_plain(calls, top, kinds, params):
     thread = next(t for t, ins, _ in calls
                   if torch.equal(ins[0][0].cpu(), top))
     mine = [(ins, outs) for t, ins, outs in calls if t == thread][::-1]
-    first_a = kinds.index("level")
     out = []
-    for lv in sorted({0, 1, first_a, len(kinds) - 1}):
+    for lv in (0, 1, len(mine) - 1):
         ins, (u1, u2, iters) = mine[lv]
-        if kinds[lv] == "blocked":
-            kernel, plain = (tvl1_blocked_level_solve,
-                             tvl1_blocked_level_solve_plain)
-        else:
-            kernel, plain = tvl1_level_solve, tvl1_level_solve_plain
-        again = kernel(*ins, params)
-        p1, p2, pit = plain(*ins, params)
+        again = tvl1_level_solve(*ins, params)
+        p1, p2, pit = tvl1_level_solve_plain(*ins, params)
         out.append({
-            "level": lv, "shape": list(ins[0].shape), "kernel": kernel.__name__,
+            "level": lv, "shape": list(ins[0].shape),
+            "kernel": "tvl1_level_solve",
             "max_abs_du": flow_diff((u1, u2), (p1, p2)), "tolerance": 1e-3,
             "iters_kernel": iters.tolist(), "iters_plain": pit.tolist(),
             "rerun_bit_identical": all(torch.equal(a, b) for a, b in
@@ -3974,8 +4015,7 @@ def dist_pod(sections, tmp):
 
 # Heights of the images that the threads of dist_concurrent solve at once,
 # 512 columns each: every one tiles its levels with another tile height, so
-# another shared memory size a launch; 840 rows takes the blocked kernel at
-# its finest level (430,080 px above FUSED_PX_BUDGET).
+# another shared memory size a launch.
 DIST_CONCURRENT_HEIGHTS = (64, 96, 136, 200, 264, 328, 392, 840)
 DIST_CONCURRENT_ROUNDS = 10
 
@@ -4076,10 +4116,8 @@ def phase_dist(results, tmp):
                           f"plain version, counts {lv['iters_kernel']} / "
                           f"{lv['iters_plain']}, rerun "
                           f"{lv['rerun_bit_identical']}")
-    if til["halo_shortfall"] != 0 or til["window_level_kernels"][:2] != [
-            "blocked", "blocked"]:
-        failed.append(f"tiled: shortfall {til['halo_shortfall']}, window "
-                      f"levels {til['window_level_kernels']}")
+    if til["halo_shortfall"] != 0:
+        failed.append(f"tiled: shortfall {til['halo_shortfall']}")
     if {"level": til["level_kernel_launches"],
             "blocked": til["blocked_kernel_launches"]} != \
             til["expected_launches"]:
@@ -4134,12 +4172,14 @@ def phase_dist(results, tmp):
         failed.append(f"concurrent threads: {conc['refused']} solves refused "
                       f"({conc['first_refusal']}), {conc['flows_differing']} "
                       "flows differ from the same solves made alone")
+    if any(l["tvl1_blocked_level_solve"] for l in (l_sched, l_tiled, l_eng)):
+        failed.append(f"the blocked kernel was launched: {l_sched}, "
+                      f"{l_tiled}, {l_eng}")
     if failed:
         fail("dist: " + "; ".join(failed))
     launches = results.setdefault("launches", {})
-    for name in ("tvl1_level_solve", "tvl1_blocked_level_solve"):
-        launches[name] = launches.get(name, 0) + sum(
-            l[name] for l in (l_sched, l_tiled, l_eng))
+    launches["tvl1_level_solve"] = launches.get("tvl1_level_solve", 0) + sum(
+        l["tvl1_level_solve"] for l in (l_sched, l_tiled, l_eng))
 
 
 def phase_install(tmp):

@@ -13,9 +13,9 @@ frame. With JSON job support:
 - inverse-map resampling: map(x) = x - flow(x), border-padded, bilinear
   remap, written as <index>.tiff (src/optflow.cpp:278-299)
 
-On a CUDA device every section's solve runs the level kernel at every
-pyramid level with the exact epsilon exit
-(``ops/tvl1_cuda.py: tvl1_flow_exact_cuda``); on the CPU the plain solver
+Every section's solve goes through ``ops.tvl1.tvl1_flow_batched``, as a
+style-1 pair's does: on a CUDA device the level kernel at every pyramid
+level with the exact epsilon exit, on the CPU the plain solver, which
 computes the same function. The frames of the +/-3 window stay on the
 device, one decode and upload per section.
 
@@ -64,12 +64,7 @@ def _solve_flow(frame, blur, scale: float, params: TVL1Params) -> torch.Tensor:
     sh = (int(round(h * scale)), int(round(w * scale)))
     f_s = resize_bilinear(frame, sh)[None]
     b_s = resize_bilinear(blur, sh)[None]
-    if frame.is_cuda:
-        from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_exact_cuda
-
-        flow_s = tvl1_flow_exact_cuda(f_s, b_s, params)[0]
-    else:
-        flow_s = tvl1_flow_batched(f_s, b_s, params)[0]
+    flow_s = tvl1_flow_batched(f_s, b_s, params)[0]
     flow_s = flow_s.permute(2, 0, 1) * (1.0 / scale)
     return resize_bilinear(flow_s, (h, w))
 

@@ -1,5 +1,5 @@
-// Shared device code of the TV-L1 kernels (sm_90a): the centered gradient,
-// the exact-gather warp of one pixel, the primal-dual arithmetic of one
+// Shared device code of the TV-L1 kernels (sm_90a): the exact-gather warp of
+// one pixel, the primal-dual arithmetic of one
 // pixel (`threshold_step`, `primal_update`, `dual_update`), and the
 // iteration on a window of a level held in shared memory, which calls them. Included by tvl1_level.cu,
 // tvl1_blocked.cu, tvl1_chunk.cu and tvl1_ablate.cu (whose kernel keeps its
@@ -83,26 +83,6 @@ std::mutex g_smem_attr_mutex;
 __device__ __forceinline__ float hat(float t) {
   // central lobe of the Catmull-Rom cubic on t in [0, 1]
   return t * t * (1.5f * t - 2.5f) + 1.0f;
-}
-
-// Centered differences of i1 with a replicated border at the real h x w.
-// Launch with 32 x 8 threads and a grid of (ceil(w/32), ceil(h/8), n).
-__global__ void gradient_kernel(const float* __restrict__ i1,
-                                float* __restrict__ gx, float* __restrict__ gy,
-                                int h, int w) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
-  size_t hw = (size_t)h * w;
-  const float* im = i1 + blockIdx.z * hw;
-  size_t o = (size_t)y * w + x;
-  float c = im[o];
-  float r = (x < w - 1) ? im[o + 1] : c;
-  float l = (x > 0) ? im[o - 1] : c;
-  float d = (y < h - 1) ? im[o + w] : c;
-  float u = (y > 0) ? im[o - w] : c;
-  gx[blockIdx.z * hw + o] = 0.5f * (r - l);
-  gy[blockIdx.z * hw + o] = 0.5f * (d - u);
 }
 
 // Backward warp of (i1, i1x, i1y) at pixel (x, y) of one image by the flow

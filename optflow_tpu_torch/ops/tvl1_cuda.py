@@ -1,9 +1,9 @@
 """The TV-L1 level solve on the GPU: wrapper of the hand-written CUDA kernel
-(``csrc/tvl1_level.cu``), its plain PyTorch version, and two coarse-to-fine
-solves that run a kernel at every pyramid level: this one, or the blocked
-kernel of ``ops/tvl1_blocked_cuda.py`` for the large levels
-(:func:`tvl1_flow_batched_cuda`, style 1), or this one at every level with
-the exact exit (:func:`tvl1_flow_exact_cuda`, style 2).
+(``csrc/tvl1_level.cu``), its plain PyTorch version, and the coarse-to-fine
+solve that runs it at every pyramid level, whatever the level's size
+(:func:`tvl1_flow_batched_cuda`: every style-1 path, the distributed ones and
+style 2). Every level so stops on the exact per-iteration exit of the plain
+solver.
 
 :func:`tvl1_level_solve` solves one whole level for a batch: given
 ``(i0, i1, u1, u2)`` it returns ``(u1, u2, iterations run per image)``. On a
@@ -17,8 +17,10 @@ The kernel runs a sweep's iterations in chunks on tiles held in shared
 memory (:data:`LEVEL_SCHEDULE` iterations per chunk) and keeps the exact
 per-iteration exit by running a chunk speculatively and, where an image's
 exit fell inside it, once more from the chunk's input up to the exit. The
-same persistent grid (``csrc/tvl1_grid.cuh``) serves the blocked and the
-chunk kernel with an exit every ``E`` iterations (:func:`launch_grid`);
+same persistent grid (``csrc/tvl1_grid.cuh``) serves the blocked kernel
+(``ops/tvl1_blocked_cuda.py``, the counterpart of the JAX package's blocked
+level kernel, which no path of this package selects) and the chunk kernel
+with an exit every ``E`` iterations (:func:`launch_grid`);
 :func:`tvl1_level_solve_schedule_plain` is the grid's control flow on whole
 images in plain PyTorch, for any exit period: it must equal
 ``level_solve_plain(exit_every=E)`` bit for bit, flow and counts.
@@ -353,34 +355,8 @@ def tvl1_level_solve(
     return u1_out, u2_out, iters
 
 
-# Padded pixels above which a level goes to the blocked kernel: the JAX
-# package's fused-kernel budget, _fused_px_budget(8) of
-# optflow_tpu/ops/tvl1_pallas.py:116 (int(110 MiB * 0.92) // 250 B per pixel),
-# kept so that the same levels take the counterpart kernels in both packages.
-# It is a size of the TPU's on-chip memory, not of this card.
-FUSED_PX_BUDGET = 424463
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def takes_blocked_kernel(h: int, w: int) -> bool:
-    """Whether an ``h x w`` level is solved by the blocked kernel
-    (ops/tvl1_blocked_cuda.py) rather than :func:`tvl1_level_solve`: the JAX
-    package's rule, on its padded canvas of 8 rows x 128 columns."""
-    return _round_up(h, 8) * _round_up(w, 128) > FUSED_PX_BUDGET
-
-
-def _kernel_level_solver(i0, i1, u1, u2, params, u3):
-    if takes_blocked_kernel(*i0.shape[-2:]):
-        from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
-            tvl1_blocked_level_solve,
-        )
-
-        a, b, iters = tvl1_blocked_level_solve(i0, i1, u1, u2, params)
-    else:
-        a, b, iters = tvl1_level_solve(i0, i1, u1, u2, params)
+def _level_solver(i0, i1, u1, u2, params, u3):
+    a, b, iters = tvl1_level_solve(i0, i1, u1, u2, params)
     return a, b, u3, iters
 
 
@@ -390,38 +366,12 @@ def tvl1_flow_batched_cuda(
     params: TVL1Params = TVL1Params(),
     init_flow: Optional[torch.Tensor] = None,  # (N, H, W, 2)
 ) -> torch.Tensor:
-    """Full coarse-to-fine TV-L1 flow of a batch with a level kernel at
-    every pyramid level: the blocked kernel where
-    :func:`takes_blocked_kernel`, else :func:`tvl1_level_solve`. Nothing is
-    read back inside the solve; the per-level iteration counts are kept on
-    the device (``ops.tvl1.get_last_iteration_stats``)."""
-    return solve_pyramid(i0s, i1s, params, init_flow, _kernel_level_solver)
-
-
-def _exact_level_solver(i0, i1, u1, u2, params, u3):
-    a, b, iters = tvl1_level_solve(i0, i1, u1, u2, params)
-    return a, b, u3, iters
-
-
-def tvl1_flow_exact_cuda(
-    i0s: torch.Tensor,  # (N, H, W)
-    i1s: torch.Tensor,
-    params: TVL1Params = TVL1Params(),
-    init_flow: Optional[torch.Tensor] = None,  # (N, H, W, 2)
-) -> torch.Tensor:
     """Full coarse-to-fine TV-L1 flow of a batch with :func:`tvl1_level_solve`
-    at EVERY pyramid level, large ones included: the epsilon exit is tested
-    after every iteration at every level, the rule of the plain solver
-    (``ops.tvl1.level_solve_plain``), where :func:`tvl1_flow_batched_cuda`
-    gives the levels above the fused budget the blocked kernel's test every
-    16 iterations. Takes CUDA tensors and raises on a CPU tensor, on
-    ``gamma != 0`` and on a failed build or launch; it never runs the plain
-    version."""
-    if not i0s.is_cuda:
-        raise ValueError(
-            "tvl1_flow_exact_cuda runs the level kernel on CUDA tensors; got "
-            f"a tensor on {i0s.device} (the plain solver is "
-            "ops.tvl1.tvl1_flow_batched)"
-        )
-    return solve_pyramid(i0s, i1s, params, init_flow, _exact_level_solver)
-
+    at every pyramid level: the epsilon exit is tested after every iteration
+    at every level, the rule of the plain solver
+    (``ops.tvl1.level_solve_plain``). Nothing is read back inside the solve;
+    the per-level iteration counts are kept on the device
+    (``ops.tvl1.get_last_iteration_stats``). CUDA tensors launch the kernel
+    at every level or raise (``gamma != 0``, a failed build or launch); CPU
+    tensors take its plain version at every level."""
+    return solve_pyramid(i0s, i1s, params, init_flow, _level_solver)

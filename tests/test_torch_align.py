@@ -480,15 +480,8 @@ def test_end_to_end_gen_solve_convert_align(tmp_path):
 
 
 def test_cuda_paths_never_fall_back(tmp_path):
-    """The exact-exit pyramid refuses CPU tensors (the plain solver is a
-    separate entry), and the style-2 job and the alignment solves asked for
-    the card raise where there is none, rather than run on the CPU."""
-    from optflow_tpu_torch.core.config import TVL1Params
-    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_flow_exact_cuda
-
-    i0 = torch.rand(1, 20, 24) * 200
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tvl1_flow_exact_cuda(i0, i0, TVL1Params(nscales=1))
+    """The style-2 job and the alignment solves asked for the card raise
+    where there is none, rather than run on the CPU."""
     if torch.cuda.is_available():
         return  # on a card the same calls run there
     recs = _make_matches(_offsets(1, 4, 2), n_pts=3)
@@ -506,37 +499,42 @@ def test_cuda_paths_never_fall_back(tmp_path):
 
 @pytest.mark.gpu
 def test_exact_pyramid_matches_the_plain_solver_on_the_card():
-    """tvl1_flow_exact_cuda (the level kernel at every level) against the
-    plain solver on the card, at a size whose finest level the blocked
-    kernel would take in tvl1_flow_batched_cuda: within 0.01 px, ten
-    launches of the level kernel, none of the blocked kernel."""
+    """tvl1_flow_batched_cuda (the level kernel at every level) against the
+    plain solver on the card, at a size whose finest level the JAX
+    package's TPU route gives its blocked kernel: within 0.01 px with equal
+    iteration counts at every level, ten launches of the level kernel, none
+    of the blocked kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
     from optflow_tpu_torch.core.config import TVL1Params
-    from optflow_tpu_torch.ops.tvl1 import level_solve_plain, solve_pyramid
+    from optflow_tpu_torch.ops.tvl1 import (
+        get_last_iteration_stats,
+        level_solve_plain,
+        solve_pyramid,
+    )
     from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
         tvl1_blocked_level_solve,
     )
     from optflow_tpu_torch.ops.tvl1_cuda import (
-        takes_blocked_kernel,
-        tvl1_flow_exact_cuda,
+        tvl1_flow_batched_cuda,
         tvl1_level_solve,
     )
 
     rng = np.random.default_rng(3)
     h, w = 512, 1024
-    assert takes_blocked_kernel(h, w)
     im0 = make_fibsem_like(rng, h, w)
     im1 = ndi.shift(im0, (0.6, -1.1), order=3, mode="nearest")
     i0 = torch.from_numpy(im0)[None].cuda()
     i1 = torch.from_numpy(im1.astype(np.float32))[None].cuda()
     params = TVL1Params()
     before = (tvl1_level_solve.launches, tvl1_blocked_level_solve.launches)
-    got = tvl1_flow_exact_cuda(i0, i1, params)
+    got = tvl1_flow_batched_cuda(i0, i1, params)
+    got_iters = [it.tolist() for _, it in get_last_iteration_stats()]
     assert (tvl1_level_solve.launches - before[0],
             tvl1_blocked_level_solve.launches - before[1]) == (10, 0)
     want = solve_pyramid(i0, i1, params, None, level_solve_plain)
     assert float((got - want).abs().max()) <= 1e-2
+    assert got_iters == [it.tolist() for _, it in get_last_iteration_stats()]
 
 
 @pytest.mark.gpu

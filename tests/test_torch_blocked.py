@@ -1,11 +1,14 @@
-"""The port's blocked level solve (through its plain version) and the
-routing between the two level kernels, against the JAX package's blocked
-kernel run in interpret mode and its jnp solver, on the CPU, on the same
-numpy inputs."""
+"""The port's blocked level solve (through its plain version), against the
+JAX package's blocked kernel run in interpret mode and its jnp solver, and
+the pyramid's one exit rule (the level solver at every level) against the
+JAX package's jnp solver and its TPU route, on the CPU, on the same numpy
+inputs."""
 
 import dataclasses
+import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -13,6 +16,9 @@ import torch
 from optflow_tpu.core.config import TVL1Params as JaxParams
 from optflow_tpu.ops import tvl1 as jtv
 from optflow_tpu.ops import tvl1_pallas as jtp
+from optflow_tpu.ops.pyramid import pyramid_shapes as j_pyramid_shapes
+from optflow_tpu.ops.warp import centered_gradient as j_centered_gradient
+from optflow_tpu.ops.warp import warp_backward as j_warp_backward
 from optflow_tpu_torch import convert
 from optflow_tpu_torch.ops import tvl1 as ttv
 from optflow_tpu_torch.ops import tvl1_blocked_cuda as tbc
@@ -138,35 +144,15 @@ def test_blocked_exit_rule_on_whole_images(rng):
             *args[:4], dataclasses.replace(tp, gamma=0.5))
 
 
-def test_routing_budget_is_the_jax_packages():
-    """The same levels take the counterpart kernels in both packages."""
-    assert tc.FUSED_PX_BUDGET == jtp._fused_px_budget(8)
-    for shape in ((256, 1024), (410, 819), (512, 1024), (524, 524),
-                  (655, 655), (1024, 1024), (34, 137)):
-        fits = (jtp._round_up(shape[0], 8) * jtp._round_up(shape[1], 128)
-                <= jtp._fused_px_budget(8))
-        assert tc.takes_blocked_kernel(*shape) == (not fits), shape
-    assert not tc.takes_blocked_kernel(256, 1024)  # no level of a strip
-    assert tc.takes_blocked_kernel(512, 1024)  # a section's finest level
-
-
-def test_routing_sends_large_levels_to_the_blocked_solver(rng, monkeypatch):
-    """With the budget shrunk, a 3-scale pyramid at (2, 48, 128) runs its
-    finest level through the blocked solver and the others through the level
-    solver (their plain versions, on the CPU). Against the unshrunk solve:
-    < 0.05 px, as the JAX package's own routing test allows (the blocked
-    level runs up to k - 1 more iterations per sweep). Against the JAX
-    package's tvl1_flow_batched_pallas in interpret mode under the same
-    shrink: < 0.05 px too, and both within 0.5 px of the truth.
-
-    epsilon is 0.004 here: where an image stops decides the flow to about
-    ten times epsilon, and at the default 0.01 the two exit rules end
-    0.1 px apart at the worst pixel (0.01 px in the mean)."""
+def test_every_level_takes_the_level_solver(rng, monkeypatch):
+    """tvl1_flow_batched_cuda solves every pyramid level with
+    tvl1_level_solve (here its plain version, on the CPU) and never with the
+    blocked solver: the levels of a 3-scale (2, 48, 128) pyramid, and a
+    single (1, 512, 1024) level, which the JAX package's TPU route gives its
+    blocked kernel."""
     n, h, w = 2, 48, 128
     i0, i1 = _pairs(rng, n, h, w, 1.0, 0.5)
-    jp, tp = _params(nscales=3, warps=3, iterations=100, epsilon=0.004)
-    t0, t1 = torch.from_numpy(i0), torch.from_numpy(i1)
-
+    _, tp = _params(nscales=3, warps=3, iterations=100, epsilon=0.01)
     calls = {"blocked": [], "level": []}
     real_blocked, real_level = tbc.tvl1_blocked_level_solve, tc.tvl1_level_solve
 
@@ -180,29 +166,137 @@ def test_routing_sends_large_levels_to_the_blocked_solver(rng, monkeypatch):
 
     monkeypatch.setattr(tbc, "tvl1_blocked_level_solve", spy_blocked)
     monkeypatch.setattr(tc, "tvl1_level_solve", spy_level)
-
-    ref = tc.tvl1_flow_batched_cuda(t0, t1, tp).numpy()
+    tc.tvl1_flow_batched_cuda(torch.from_numpy(i0), torch.from_numpy(i1), tp)
     assert calls == {"blocked": [], "level": [(30, 82), (38, 102), (48, 128)]}
 
-    monkeypatch.setattr(tc, "FUSED_PX_BUDGET", 40 * 128)
+    h, w = 512, 1024
+    assert (jtp._round_up(h, 8) * jtp._round_up(w, 128)
+            > jtp._fused_px_budget(8))
+    i0, i1 = _pairs(rng, 1, h, w)
+    _, tp = _params(nscales=1, warps=1, iterations=3)
     calls["level"].clear()
-    mixed = tc.tvl1_flow_batched_cuda(t0, t1, tp).numpy()
-    assert calls == {"blocked": [(48, 128)], "level": [(30, 82), (38, 102)]}
-    assert np.abs(mixed - ref).max() < 0.05
-    stats = ttv.get_last_iteration_stats()
-    assert [s for s, _ in stats] == [(30, 82), (38, 102), (48, 128)]
-    assert all(it.shape == (n,) and int(it.min()) > 0 for _, it in stats)
-    # the blocked level's counts are whole chunks of the default k
-    assert all(any((c - s * (100 % tbc.BLOCKED_K)) % tbc.BLOCKED_K == 0
-                   for s in range(4))
-               for c in stats[-1][1].tolist())
+    flow = tc.tvl1_flow_batched_cuda(torch.from_numpy(i0),
+                                     torch.from_numpy(i1), tp)
+    assert calls == {"blocked": [], "level": [(512, 1024)]}
+    assert tuple(flow.shape) == (1, h, w, 2)
+    (shape, iters), = ttv.get_last_iteration_stats()
+    assert shape == (h, w) and iters.tolist() == [3]
 
-    monkeypatch.setattr(jtp, "_FUSED_PX_BUDGET", 40 * 128)
-    monkeypatch.setattr(jtp, "_on_tpu", lambda: True)
-    want = np.asarray(jtp.tvl1_flow_batched_pallas(
-        jnp.asarray(i0), jnp.asarray(i1), jp, interpret=True))
-    assert np.abs(mixed - want).max() < 0.05
-    for flow in (mixed, want):
+
+@functools.partial(jax.jit, static_argnums=5)
+def _jax_counted_level(i0, i1, u1, u2, u3, jp):
+    """The JAX package's jnp level solve (``tvl1_flow_level``: the same
+    loops over its ``_iteration`` and ``warp_backward``) with the
+    iterations its epsilon exit let run kept, summed over the sweeps."""
+    l_t = jp.lambda_ * jp.theta
+    taut = jp.tau / jp.theta
+    thresh = jp.epsilon * jp.epsilon * i0.shape[0] * i0.shape[1]
+    i1x, i1y = j_centered_gradient(i1)
+    zeros = jnp.zeros_like(i0)
+    state = jtv._LevelState(u1, u2, u3, *([zeros] * 6))
+
+    def one_warp(_, carry):
+        total, state = carry
+        _, a, b, g, r = j_warp_backward(i0, i1, i1x, i1y, state.u1, state.u2)
+
+        def cond(c):
+            k, _, err = c
+            return (k < jp.iterations) & (err > thresh)
+
+        def body(c):
+            k, st, _ = c
+            st, err = jtv._iteration(st, a, b, g, r, l_t, jp.theta, taut,
+                                     jp.gamma)
+            return k + 1, st, err
+
+        k, state, _ = jax.lax.while_loop(
+            cond, body, (0, state, jnp.float32(jnp.inf)))
+        return total + k, state
+
+    total, state = jax.lax.fori_loop(0, jp.warps, one_warp, (0, state))
+    return state.u1, state.u2, state.u3, total
+
+
+@pytest.mark.parametrize("epsilon", [0.004, 0.01])
+def test_pyramid_equals_the_jax_packages_jnp_solver(rng, epsilon):
+    """tvl1_flow_batched_cuda (the level solver at every level, on the CPU)
+    against the JAX package's tvl1_flow_batched off the TPU (the vmapped
+    jnp solver, exact exit at every level) on the same numpy inputs: a
+    3-scale (2, 48, 128) pyramid within 1e-4 px, and every level's
+    iteration count of every image equal to the jnp loop's."""
+    n, h, w = 2, 48, 128
+    i0, i1 = _pairs(rng, n, h, w, 1.0, 0.5)
+    jp, tp = _params(nscales=3, warps=3, iterations=100, epsilon=epsilon)
+    got = tc.tvl1_flow_batched_cuda(torch.from_numpy(i0),
+                                    torch.from_numpy(i1), tp).numpy()
+    stats = ttv.get_last_iteration_stats()
+    want = np.asarray(jtv.tvl1_flow_batched(jnp.asarray(i0), jnp.asarray(i1),
+                                            jp))
+    assert np.abs(got - want).max() <= 1e-4
+
+    jax_counts = []
+    for k in range(n):
+        counts = []
+
+        def counted(a, b, u1, u2, p, u3=None):
+            u1, u2, u3, total = _jax_counted_level(a, b, u1, u2, u3, p)
+            counts.append(int(total))
+            return u1, u2, u3
+
+        flow = np.asarray(jtv.tvl1_flow(jnp.asarray(i0[k]), jnp.asarray(i1[k]),
+                                        jp, level_solver=counted))
+        # the counted loop is the package's solve, compiled without vmap
+        # (so fused otherwise: 1.6e-5 px apart at epsilon 0.01)
+        assert np.abs(flow - want[k]).max() <= 1e-4
+        jax_counts.append(counts)
+    assert [s for s, _ in stats] == [(30, 82), (38, 102), (48, 128)]
+    assert [it.tolist() for _, it in stats] == [list(c) for c in
+                                                zip(*jax_counts)]
+    assert all(0 < c < 300 for c in np.ravel(jax_counts))  # the exit fired
+
+
+def test_pyramid_against_the_jax_tpu_route_with_its_blocked_level(rng):
+    """The JAX package's TPU route for a pyramid whose finest level is above
+    its fused budget, in interpret mode: its fused kernel at the two coarse
+    levels of a 3-scale (2, 48, 128) pyramid and its blocked kernel at the
+    finest, one level program each, as ``tvl1_flow_batched_pallas`` chains
+    them on a TPU (its interpret mode takes the grouped chunk-kernel path
+    instead, so the chain is built here). The port takes the exact exit at
+    every level. They differ by that route's exit rules (the fused kernel
+    iterates a stack until its slowest image stops, the blocked level tests
+    epsilon every 16 iterations) and its shift-compose warp and approximate
+    reciprocals: < 0.05 px, as the JAX package's own routing test allows
+    (0.0486 px measured; 0.035 px with the fused kernel at the finest level
+    too), and both within 0.5 px of the truth.
+
+    epsilon is 0.004 here: where an image stops decides the flow to about
+    ten times epsilon, and at the default 0.01 the two routes end 0.11 px
+    apart at the worst pixel (0.013 px in the mean)."""
+    n, h, w = 2, 48, 128
+    i0, i1 = _pairs(rng, n, h, w, 1.0, 0.5)
+    jp, tp = _params(nscales=3, warps=3, iterations=100, epsilon=0.004)
+    got = tc.tvl1_flow_batched_cuda(torch.from_numpy(i0),
+                                    torch.from_numpy(i1), tp).numpy()
+
+    shapes = j_pyramid_shapes(h, w, jp.nscales, jp.scale_step)
+    levels = jtp._pyramid_fn(n, h, w, jp.nscales, jp.scale_step, True)(
+        jnp.concatenate([jnp.asarray(i0), jnp.asarray(i1)]))
+    u1 = u2 = jnp.zeros((n,) + shapes[-1], jnp.float32)
+    for s in range(len(shapes) - 1, -1, -1):
+        nxt = shapes[s - 1] if s > 0 else None
+        if s == 0:
+            step = jtp._blocked_level_fn(n, shapes[s], nxt, jp, True, 8,
+                                         jtp._BLOCKED_K)
+        else:
+            step = jtp._fused_level_fn(n, shapes[s], nxt, jp, True, 8)
+        u1, u2, viol, its, _ = step(levels[s][:n], levels[s][n:], u1, u2)
+        assert int(np.asarray(viol).max()) == 0  # in-contract flow
+    # the blocked level's counts are whole chunks of k = 16
+    assert all(any((c - m * (100 % jtp._BLOCKED_K)) % jtp._BLOCKED_K == 0
+                   for m in range(4)) for c in np.asarray(its).tolist())
+    want = np.stack([np.asarray(u1), np.asarray(u2)], axis=-1)
+    assert np.abs(got - want).max() < 0.05
+    for flow in (got, want):
         assert np.hypot(flow[..., 0] - 1.0, flow[..., 1] - 0.5).mean() <= 0.5
 
 

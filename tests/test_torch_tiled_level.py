@@ -506,35 +506,6 @@ def test_level_kernel_equals_the_blocked_kernel_on_the_card(rng):
 
 
 @pytest.mark.gpu
-def test_blocked_kernel_equals_the_kernel_it_replaces_on_the_card(rng):
-    """The blocked kernel on the grid against the per-chunk design it
-    replaces (the library's second entry point): the same bits at epsilon 0;
-    with the exit, counts equal or one chunk apart (the tile sums are added
-    in another order), iterations computed equal to those counted, and a
-    rerun bit-identical."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
-    args = tuple(a.cuda() for a in _level_inputs(rng, 3, 70, 150))
-    _, fixed = _params(nscales=1, warps=2, iterations=32, epsilon=0.0)
-    before = tbc.tvl1_blocked_level_solve.launches
-    k1, k2, kit = tbc.tvl1_blocked_level_solve(*args, fixed)
-    o1, o2, oit = tbc.tvl1_blocked_level_solve_per_chunk(*args, fixed)
-    assert tbc.tvl1_blocked_level_solve.launches == before + 1
-    assert torch.equal(k1, o1) and torch.equal(k2, o2)
-    assert torch.equal(kit, oit)
-    _, full = _params(nscales=1, warps=3, iterations=300, epsilon=0.01)
-    a1, a2, ait = tbc.tvl1_blocked_level_solve(*args, full)
-    work = tbc.tvl1_blocked_level_solve.last_work
-    b1, b2, bit = tbc.tvl1_blocked_level_solve(*args, full)
-    _, _, oit = tbc.tvl1_blocked_level_solve_per_chunk(*args, full)
-    _, _, pit = tbc.tvl1_blocked_level_solve_plain(*args, full)
-    assert torch.equal(a1, b1) and torch.equal(a2, b2)
-    assert torch.equal(ait, bit) and torch.equal(work[0], ait)
-    for other in (oit, pit):
-        assert bool(((ait - other).abs() <= tbc.BLOCKED_K).all())
-
-
-@pytest.mark.gpu
 def test_chunk_level_entry_matches_the_old_sweep_loop_on_the_card(rng):
     """The chunk kernel's level entry against the sweep loop it replaces
     (PyTorch warp + tvl1_chunk_sweep a sweep) and its plain version: one
