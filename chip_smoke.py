@@ -27,6 +27,9 @@ PyTorch version on the card:
   1024x2048 section, ``run_job_batched`` on a pairs mesh (the level kernel
   once for each device and each tile), the sharded
   alignment solves, and two processes of the pod launcher;
+- the port's benches (``optflow_tpu_torch/bench/``), the counterparts of the
+  root ``bench*.py``, at their full sizes: the level kernel on every one,
+  the chunk kernel's level entry on the roofline;
 - the native image loader, or its header-free resize behind cv2's decode
   where the loader cannot be built, which decodes every job's frames from
   files, and the deploy recipe: a wheel installed apart, which builds every kernel
@@ -125,6 +128,17 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            and objective excess) of the align graph against the unsharded;
            two processes of optflow_tpu_torch.cli.run_pod on a 16-pair PNG
            job
+  bench    each bench of optflow_tpu_torch/bench once, in this process, its
+           line printed: solve (16, 256, 1024), job (the job phase's 64 pairs,
+           not its default 512, from PNG files), the matrix's features,
+           features_chained, roofline and tiled (512x512 split by rows over
+           cuda:0 entered 8 times: a correctness check, as in dist), and
+           scaling (the visible cards; one card: size 1, unmeasured). Gates:
+           both EPE gates, the match gate, both end-to-end feature gates, the
+           tiled solve within 0.25 px, every roofline share <= 1.0, the solve
+           line's counted pixel-iterations equal to the solve phase's on the
+           same inputs, and the level kernel launched by every bench, the
+           chunk kernel by the roofline
   install  deploy/bootstrap_venv_torch.sh --device cuda: the wheel, an
            isolated install, its console scripts, every kernel and the host
            libraries of the decode route built from the installed tree, and a
@@ -157,51 +171,37 @@ import time
 
 import numpy as np
 
+from optflow_tpu_torch.bench.roofline import (
+    PEAK_BYTES_PER_S,
+    chunk_bound_ms,
+    level_bound_ms,
+)
+from optflow_tpu_torch.bench.synth import (
+    BATCH as SOLVE_BATCH,
+    DX,
+    DX_STEP,
+    DY,
+    DY_STEP,
+    H as SOLVE_H,
+    MAX_DZ,
+    SCALE,
+    SRC_H,
+    SRC_W,
+    STRIP,
+    W as SOLVE_W,
+    MockRenderSink,
+    build_job,
+    gen_sections,
+    make_pair,
+    match_errors,
+    oracle_flow,
+)
+
 ALL_PHASES = ("device", "build", "decode", "kernels", "ablate", "smem_cap",
               "solve", "job", "cli", "section", "level_api", "features",
-              "style2", "align", "dist", "install")
+              "style2", "align", "dist", "bench", "install")
 KERNEL_STEMS = ("tvl1_level", "tvl1_blocked", "tvl1_chunk", "tvl1_ablate",
                 "smem_cap")
-
-# published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
-# and float32 rate outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-# Float operations per pixel that the function needs, tallied from the
-# arithmetic of csrc/tvl1_level.cu with the convention of the peak above:
-# mul, add/sub, negate, compare, min/max, floor, div and sqrt count 1 each,
-# a multiply-add 2. Index arithmetic and border tests are integer work and
-# are not counted; the apron the tiled kernel recomputes is the design's
-# overhead, not the function's, and is not counted either.
-#
-# One primal-dual iteration:
-#   grad = a*a + b*b                                   3
-#   rho = rho_c + a*u1 + b*u2                          4
-#   t = l_t*grad                                       1
-#   rho < -t, rho > t, grad > eps (one negate)         4
-#   threshold step, its longest branch:
-#     fi = -rho / max(grad, eps); d = fi*(a, b)        5
-#   div p, two fields: 2 differences + 1 add each      6
-#   u_new = (u + d) + theta*div, two fields            6
-#   sum of |u_new - u|^2: 2 sub, 2 mul, 2 add          6
-#   forward differences of u_new                       4
-#   1 + taut*sqrt(ux*ux + uy*uy), two fields          12
-#   p_new = (p + taut*du) / norm, four fields         12
-ITER_FLOPS_PER_PX = 3 + 4 + 1 + 4 + 5 + 6 + 6 + 6 + 4 + 12 + 12  # = 63
-# One warp sweep:
-#   x + u1, y + u2                                     2
-#   clamp to the image (max, min), two axes            4
-#   x0 = min(floor(x), w - 2), two axes                4
-#   fx, fy                                             2
-#   four hat weights t*t*(1.5*t - 2.5) + 1 at 5 each,
-#     and 1 - fx, 1 - fy                              22
-#   1 / ((wx0 + wx1)*(wy0 + wy1))                      4
-#   three 2x2 gathers (i1, i1x, i1y): two rows of
-#     3, their blend 3, the renormalisation 1         30
-#   rho_c = i1w - i1wx*u1 - i1wy*u2 - i0               5
-WARP_FLOPS_PER_PX = 2 + 4 + 4 + 2 + 22 + 4 + 30 + 5  # = 73
-# The gradient: 0.5*(r - l) and 0.5*(d - u)
-GRAD_FLOPS_PER_PX = 4
 
 # every kernel of the port: its source, the body of the TPU kernel it
 # replaces, and the phases whose launches the kernels line counts (its main
@@ -210,7 +210,7 @@ KERNELS = {
     "tvl1_level_solve": {
         "source": "optflow_tpu_torch/csrc/tvl1_level.cu",
         "replaces": "optflow_tpu/ops/tvl1_pallas.py:226",
-        "launches_on": "job, section map job, style2, dist",
+        "launches_on": "job, section map job, style2, dist, bench",
     },
     "tvl1_blocked_level_solve": {
         "source": "optflow_tpu_torch/csrc/tvl1_blocked.cu",
@@ -220,7 +220,7 @@ KERNELS = {
     "tvl1_chunk": {
         "source": "optflow_tpu_torch/csrc/tvl1_chunk.cu",
         "replaces": "optflow_tpu/ops/tvl1_pallas.py:1250",
-        "launches_on": "level_api",
+        "launches_on": "level_api, bench (roofline)",
     },
     "tvl1_ablate_chunks": {
         "source": "optflow_tpu_torch/csrc/tvl1_ablate.cu",
@@ -237,14 +237,8 @@ KERNELS = {
 # is the one the CUDA runtime reports for the card (cudaDevAttrClockRate).
 SMEM_BYTES_PER_CLOCK = 128
 
-# solve phase: the JAX bench's pair generator and truth
-SOLVE_H, SOLVE_W, SOLVE_BATCH = 256, 1024, 16
-DX, DY = 2.0, -1.25
-
-# job phase: the JAX job bench's geometry
-SRC_H, SRC_W = 1024, 2048
-SCALE = 0.5
-STRIP = 256
+# the solve phase's pairs and the job phase's geometry are the benches'
+# (optflow_tpu_torch/bench/synth.py)
 SECTION_H, SECTION_W = int(SRC_H * SCALE), int(SRC_W * SCALE)  # 512 x 1024
 # section phase: the two full-section solves, (batch, height, width)
 SECTION_SOLVES = ((4, SECTION_H, SECTION_W), (1, 1024, 1024))
@@ -257,8 +251,6 @@ SECTION_SOLVES = ((4, SECTION_H, SECTION_W), (1, 1024, 1024))
 # (`style2`, the card-marked test in tests/test_torch_align.py); an exit
 # rule that stops elsewhere moves the flow by ~0.1 px.
 SECTION_VS_PLAIN_PX = 1e-2
-DX_STEP, DY_STEP = 2.2, -1.2  # per z step, full-res px
-MAX_DZ = 3
 # style2 phase: 13 sections of the job phase's geometry give 7 outputs (each
 # needs 3 neighbours a side); each section displaced by a known jitter
 STYLE2_SECTIONS = 13
@@ -288,24 +280,6 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
-
-
-def make_pair(h, w, dx, dy, seed=0):
-    """Synthetic FIB-SEM-like pair with known ground-truth flow (dx, dy)."""
-    import scipy.ndimage as ndi
-
-    rng = np.random.default_rng(seed)
-    base = rng.standard_normal((h, w))
-    tex = ndi.gaussian_filter(base, 2.0)
-    lowf = ndi.gaussian_filter(rng.standard_normal((h, w)), 18.0)
-    im = tex * 2.0 + lowf * 4.0
-    im = (im - im.min()) / (np.ptp(im) + 1e-9)
-    im0 = (20.0 + 215.0 * im).astype(np.float32)
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
-    im1 = ndi.map_coordinates(
-        im0, [ys - dy, xs - dx], order=3, mode="nearest"
-    ).astype(np.float32)
-    return im0, im1
 
 
 def make_level_inputs(n, h, w, seed, shift=1.0, flow_amp=1.5):
@@ -389,36 +363,6 @@ def enqueued_launches(fn):
     fn()
     k1, m1 = enqueued()
     return k1 - k0, m1 - m0
-
-
-def level_bound_ms(n, h, w, warps, total_iters):
-    """Least time the card could take for one level solve: the larger of
-    (inputs i0, i1, u1, u2 read once + outputs u1, u2 written once) over the
-    memory rate, and the float operations this run's iteration counts need
-    over the float32 rate. ``total_iters`` = sum over images of iterations
-    run."""
-    px = h * w
-    bytes_moved = 6 * 4 * n * px + 4 * n
-    flops = px * (
-        ITER_FLOPS_PER_PX * total_iters
-        + n * (WARP_FLOPS_PER_PX * warps + GRAD_FLOPS_PER_PX)
-    )
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def chunk_bound_ms(n, h, w, blocks, total_iters):
-    """Least time the card could take for one chunk call: ro (3 planes) and
-    the state (6) read once, the new state (6) and the errors written once,
-    over the memory rate; or the iterations these images ran (``total_iters``
-    = their sum over the images) over the float32 rate."""
-    px = h * w
-    bytes_moved = 15 * 4 * n * px + 4 * n * blocks
-    flops = ITER_FLOPS_PER_PX * px * total_iters
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_wrappers():
@@ -1816,9 +1760,10 @@ def phase_smem_cap(results):
     results.setdefault("launches", {})["smem_fill_mean"] = launches
 
 
-def phase_solve():
+def phase_solve(results):
     import torch
 
+    from optflow_tpu_torch.bench.roofline import pyramid_work
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.ops.tvl1 import (
         get_last_iteration_stats,
@@ -1826,14 +1771,10 @@ def phase_solve():
     )
     from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    fixture = os.path.join(here, "tests", "fixtures",
-                           "golden_oracle_256x1024.npz")
-    d = np.load(fixture)
-    if not (float(d["dx"]) == DX and float(d["dy"]) == DY
-            and int(d["seed"]) == 0):
-        fail("oracle fixture metadata does not match the solve phase's pair")
-    oracle = d["flow"]
+    try:
+        oracle = oracle_flow()
+    except ValueError as e:
+        fail(str(e))
 
     pairs = [make_pair(SOLVE_H, SOLVE_W, DX, DY, seed=s)
              for s in range(SOLVE_BATCH)]
@@ -1859,10 +1800,10 @@ def phase_solve():
          "iters_min": int(it.min()), "iters_max": int(it.max())}
         for shape, it in get_last_iteration_stats()
     ]
-    px_iters = sum(
-        s["shape"][0] * s["shape"][1] * s["iters_mean"] * SOLVE_BATCH
-        for s in stats
-    )
+    # the counted pixel-iterations, as the solve bench counts them
+    px_iters = pyramid_work(get_last_iteration_stats(),
+                            params.warps).px_iterations
+    results["solve_px_iterations"] = px_iters
 
     if tuple(flow.shape) != (SOLVE_BATCH, SOLVE_H, SOLVE_W, 2):
         fail(f"flow has shape {tuple(flow.shape)}")
@@ -2015,94 +1956,6 @@ def phase_levels(pairs):
           "levels": levels})
 
 
-def synth_stack(n_frames, src_h=SRC_H, src_w=SRC_W):
-    """uint8 sections: crops of one band-limited texture, each shifted by
-    (DX_STEP, DY_STEP) full-res px per z step, plus per-section noise."""
-    import scipy.ndimage as ndi
-
-    rng = np.random.default_rng(7)
-    pad_h = int(abs(DY_STEP) * n_frames) + 8
-    pad_w = int(abs(DX_STEP) * n_frames) + 8
-    big_h, big_w = src_h + pad_h, src_w + pad_w
-    base = ndi.gaussian_filter(rng.standard_normal((big_h, big_w)), 4.0)
-    lowf = ndi.gaussian_filter(rng.standard_normal((big_h, big_w)), 36.0)
-    tex = base * 2.0 + lowf * 4.0
-    tex = (tex - tex.min()) / (np.ptp(tex) + 1e-9)
-    tex = 20.0 + 215.0 * tex
-    ys = np.arange(src_h)
-    xs = np.arange(src_w)
-    frames = []
-    for z in range(n_frames):
-        oy = pad_h / 2 - DY_STEP * (z - n_frames / 2)
-        ox = pad_w / 2 - DX_STEP * (z - n_frames / 2)
-        gy, gx = np.meshgrid(ys + oy, xs + ox, indexing="ij")
-        sec = ndi.map_coordinates(tex, [gy, gx], order=3, mode="nearest")
-        sec = sec + rng.normal(0.0, 1.5, sec.shape)
-        frames.append(np.clip(sec, 0, 255).astype(np.uint8))
-    return frames
-
-
-def build_job(names, n_pairs, journal, tag):
-    """Reference-schema job dict: chained pairs at z-distance <= MAX_DZ,
-    strip ROIs, random_points output."""
-    n_frames = len(names)
-    images = []
-    for z in range(n_frames):
-        for dz in range(1, MAX_DZ + 1):
-            if z + dz >= n_frames or len(images) >= n_pairs:
-                continue
-            images.append({
-                "p": names[z], "q": names[z + dz],
-                "pId": f"tile_{z}", "qId": f"tile_{z + dz}",
-                "pGroupId": f"{z}.0", "qGroupId": f"{z + dz}.0",
-                "output_name": f"{tag}_{z}_{z + dz}",
-                "dz": dz,  # carried through for the gate
-            })
-    return {
-        "style": 1, "scale": SCALE, "output_type": "random_points",
-        "rois": {"top": STRIP, "bottom": STRIP}, "npoints": 25,
-        "batch_size": 100, "pair_batch": 16, "journal": journal,
-        "images": images[:n_pairs],
-    }
-
-
-class MockRenderSink:
-    """Stand-in for the match service: JSON-serialises every batch (the host
-    cost the real sink pays), sends nothing."""
-
-    def __init__(self):
-        self.puts = 0
-        self.bytes = 0
-        self.match_sets = []
-
-    def put(self, matches):
-        payload = json.dumps(matches).encode("utf-8")
-        self.puts += 1
-        self.bytes += len(payload)
-        self.match_sets.extend(matches)
-        return True
-
-
-def gate_matches(match_sets, job):
-    """Mean error of the emitted q - p against the known shift
-    dz * (DX_STEP, DY_STEP), full-res px."""
-    by_name = {(im["pId"], im["qId"]): im["dz"] for im in job["images"]}
-    errs = []
-    for ms in match_sets:
-        dz = by_name.get((ms["pId"], ms["qId"]))
-        m = ms["matches"]
-        if dz is None or not m["w"] or max(m["w"]) == 0:
-            continue
-        p = np.asarray(m["p"], np.float64)
-        q = np.asarray(m["q"], np.float64)
-        d = q - p
-        errs.append(np.hypot(d[0] - dz * DX_STEP, d[1] - dz * DY_STEP))
-    if not errs:
-        return None, 0
-    allerr = np.concatenate(errs)
-    return float(allerr.mean()), int(allerr.size)
-
-
 def phase_job(results, tmp):
     import torch
 
@@ -2111,7 +1964,7 @@ def phase_job(results, tmp):
     n_pairs = 64
     n_frames = n_pairs // MAX_DZ + MAX_DZ + 1
     t0 = time.perf_counter()
-    sections = synth_stack(n_frames)
+    sections = gen_sections(n_frames)
     synth_s = time.perf_counter() - t0
     names = [f"mem://sec_{z:04d}" for z in range(n_frames)]
     # what decode + cv::resize(0.5) gives: the 2x2 mean of the uint8 section
@@ -2138,7 +1991,7 @@ def phase_job(results, tmp):
     wall = time.perf_counter() - t0
     launches = read_launch_counts()["tvl1_level_solve"]
 
-    err, n_matches = gate_matches(sink.match_sets, job)
+    err, n_matches = match_errors(sink.match_sets, job)
     mp_per_pair = 2 * STRIP * (SRC_W * SCALE) / 1e6
     emit({"phase": "job", "pairs": stats["pairs"],
           "batched": stats["batched"], "sequential": stats["sequential"],
@@ -2247,12 +2100,12 @@ def phase_cli(results, tmp):
         return
     n_pairs = 16
     n_frames = n_pairs // MAX_DZ + MAX_DZ + 1
-    sections = results.get("sections") or synth_stack(n_frames)
+    sections = results.get("sections") or gen_sections(n_frames)
     names = write_pngs(sections[:n_frames], os.path.join(tmp, "stack"),
                        decoder)
     job = build_job(names, n_pairs, os.path.join(tmp, "cli.journal"), "cli")
     proc, match_sets, wall = run_cli(job, tmp, "cli")
-    err, n_matches = gate_matches(match_sets, job)
+    err, n_matches = match_errors(match_sets, job)
     last_line = proc.stdout.strip().splitlines()[-1]
     # the CLI's own count of level-kernel launches, from its `done:` line:
     # 16 pairs are one group, whose solve launches once per pyramid level
@@ -2451,7 +2304,7 @@ def phase_section(results, tmp):
     # style-1 jobs of whole sections with TIFF output, frames from memory
     n_frames = 8 // MAX_DZ + MAX_DZ + 1
     sections = (results.get("sections")
-                or synth_stack(n_frames, SRC_H, SRC_W))[:n_frames]
+                or gen_sections(n_frames, SRC_H, SRC_W))[:n_frames]
     names = [f"mem://sec_{z:04d}" for z in range(n_frames)]
     half = {
         nm: s.reshape(SRC_H // 2, 2, SRC_W // 2, 2).astype(np.float32)
@@ -2626,7 +2479,7 @@ def chained_strip_stack(n_frames, h=SOLVE_H, w=SOLVE_W, seed=5, pad=128):
 
 
 def misaligned_sections(n_frames, seed=13):
-    """uint8 sections as :func:`synth_stack` makes them (the same per-z
+    """uint8 sections as :func:`gen_sections` makes them (the same per-z
     shift), each also shifted (<= 3 full-res px) and slightly rotated
     (<= 0.02 degrees about its centre) on its own, so a pair differs by up
     to 6 px beside its z shift. The rotation is kept small on purpose: the
@@ -2928,7 +2781,7 @@ def phase_features(results, tmp):
 
 def jittered_stack(n_frames, seed=21, src_h=SRC_H, src_w=SRC_W):
     """uint8 sections cut from one band-limited texture (that of
-    ``synth_stack``), each displaced by its own sub-pixel jitter, uniform
+    ``gen_sections``), each displaced by its own sub-pixel jitter, uniform
     in +-STYLE2_JITTER_PX on each axis, plus per-section noise. Returns
     (sections, offsets (n, 2), texture): section z at pixel (x, y) shows
     ``texture(y + pad, x + pad)`` at (x, y) + offsets[z], pad = 8."""
@@ -3793,7 +3646,7 @@ def dist_engine(devs, sections, tmp):
             stats = run_job_batched(job, sink=sink, loader=loader, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        err, n_matches = gate_matches(sink.match_sets, job)
+        err, n_matches = match_errors(sink.match_sets, job)
         runs[side] = {"stats": stats, "wall_s": wall, "match_err_px": err,
                       "gated_matches": n_matches}
     launches = read_launch_counts()
@@ -4077,7 +3930,7 @@ def phase_dist(results, tmp):
     print(f"chip_smoke: dist mesh: {described}", flush=True)
     sections = results.get("sections")
     if sections is None or len(sections) < 25:
-        sections = synth_stack(64 // MAX_DZ + MAX_DZ + 1)
+        sections = gen_sections(64 // MAX_DZ + MAX_DZ + 1)
     sched, l_sched = dist_scheduler(devs, sections)
     til, l_tiled = dist_tiled(devs, sections)
     eng, l_eng = dist_engine(devs, sections, tmp)
@@ -4182,6 +4035,120 @@ def phase_dist(results, tmp):
         l["tvl1_level_solve"] for l in (l_sched, l_tiled, l_eng))
 
 
+# bench phase: the tiled solve's rows axis on one card (a correctness check,
+# as in the dist phase), and the job's depth (the job phase's: the bench's
+# default of 512 pairs needs 174 synthetic sections, each a cubic resampling
+# on the host)
+BENCH_TILED_ROWS = 8
+BENCH_JOB_PAIRS = 64
+
+
+def run_bench(name, main, argv):
+    """One bench's ``main(argv)`` in this process, its output captured:
+    (its last JSON line, launches of the level kernel and the chunk kernel's
+    level entry during the run). A bench that exits non-zero fails the run."""
+    import torch
+
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            main(argv)
+    except SystemExit as e:
+        print(out.getvalue()[-3000:], file=sys.stderr)
+        fail(f"bench {name}: {e.code}")
+    torch.cuda.synchronize()
+    counts = read_launch_counts()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    return line, counts["tvl1_level_solve"], counts["tvl1_chunk_level_solve"]
+
+
+def phase_bench(results, tmp):
+    """The port's benches at their full sizes, through the entry points a
+    user calls, their lines and gates."""
+    import torch
+
+    from optflow_tpu_torch.bench import job, matrix, scaling, solve, synth
+    from optflow_tpu_torch.bench.roofline import pyramid_work
+    from optflow_tpu_torch.core.config import TVL1Params
+    from optflow_tpu_torch.ops.tvl1 import (
+        get_last_iteration_stats,
+        tvl1_flow_batched,
+    )
+
+    px_iters = results.get("solve_px_iterations")
+    if px_iters is None:  # the solve phase did not run: its count here
+        i0, i1 = (torch.from_numpy(x).cuda() for x in solve.solve_inputs(
+            SOLVE_BATCH, SOLVE_H, SOLVE_W))
+        tvl1_flow_batched(i0, i1, TVL1Params())
+        px_iters = pyramid_work(get_last_iteration_stats(),
+                                TVL1Params().warps).px_iterations
+    rows = ",".join(["cuda:0"] * BENCH_TILED_ROWS)
+    benches = (
+        ("solve", solve.main, []),
+        ("job", job.main, ["--pairs", str(BENCH_JOB_PAIRS)]),
+        ("features", matrix.main, ["features"]),
+        ("features_chained", matrix.main, ["features_chained"]),
+        ("roofline", matrix.main, ["roofline"]),
+        ("tiled", matrix.main, ["tiled", "--devices", rows]),
+        ("scaling", scaling.main, []),
+    )
+    saved = os.environ.get(synth.STACK_ENV)
+    os.environ[synth.STACK_ENV] = os.path.join(tmp, "bench_stack")
+    lines, level, chunk = {}, {}, {}
+    try:
+        for name, main, argv in benches:
+            t0 = time.perf_counter()
+            lines[name], level[name], chunk[name] = run_bench(name, main, argv)
+            emit({"phase": "bench", "bench": name, "argv": argv,
+                  "wall_s": time.perf_counter() - t0,
+                  "level_kernel_launches": level[name],
+                  "chunk_kernel_launches": chunk[name],
+                  "line": lines[name]})
+    finally:
+        if saved is None:
+            os.environ.pop(synth.STACK_ENV, None)
+        else:
+            os.environ[synth.STACK_ENV] = saved
+
+    failed = []
+    sol = lines["solve"]
+    if not (sol["epe_ok"] and sol["oracle_epe_ok"] is True):
+        failed.append(f"solve EPE {sol['epe_px']}, against the oracle "
+                      f"{sol['epe_vs_oracle_px']} (gate 0.5 px)")
+    if round(sol["gpx_iters_per_batch"] * 1e9) != round(px_iters):
+        failed.append(f"the solve bench counted {sol['gpx_iters_per_batch']}"
+                      f" G pixel-iterations, the solve phase {px_iters / 1e9}")
+    if not lines["job"]["match_ok"]:
+        failed.append(f"job match error {lines['job']['match_err_px']} px")
+    for name in ("features", "features_chained"):
+        if not lines[name]["e2e_ok"]:
+            failed.append(f"{name} end-to-end error "
+                          f"{lines[name]['e2e_epe_px']} px")
+    if not lines["tiled"]["value"] <= 0.25:
+        failed.append(f"tiled solve {lines['tiled']['value']} px from the "
+                      "monolithic one")
+    shares = {"solve_mfu": sol["mfu"], **{
+        row: lines["roofline"][row]["share"]
+        for row in ("plain", "chunk", "level")}}
+    if not all(x is not None and 0.0 < x <= 1.0 for x in shares.values()):
+        failed.append(f"roofline shares {shares}")
+    if min(level.values()) < 1 or chunk["roofline"] < 1:
+        failed.append(f"a bench did not launch its kernel: level {level}, "
+                      f"chunk {chunk}")
+    emit({"phase": "bench", "gates": "failed" if failed else "passed",
+          "solve_phase_px_iterations": px_iters, "shares": shares,
+          "tiled_rows_axis": f"cuda:0 entered {BENCH_TILED_ROWS} times "
+          "(one card: a correctness check, not scaling)"})
+    if failed:
+        fail("bench: " + "; ".join(failed))
+    launches = results.setdefault("launches", {})
+    launches["tvl1_level_solve"] = (launches.get("tvl1_level_solve", 0)
+                                    + sum(level.values()))
+    launches["tvl1_chunk"] = launches.get("tvl1_chunk", 0) + chunk["roofline"]
+
+
 def phase_install(tmp):
     """deploy/bootstrap_venv_torch.sh with the card: the wheel, an isolated
     install and its console scripts, every kernel and the host libraries
@@ -4275,7 +4242,7 @@ def main(argv=None) -> int:
         if "smem_cap" in phases:
             phase_smem_cap(results)
         if "solve" in phases:
-            phase_solve()
+            phase_solve(results)
         if "job" in phases:
             phase_job(results, tmp)
         if "cli" in phases:
@@ -4292,6 +4259,8 @@ def main(argv=None) -> int:
             phase_align(results, tmp)
         if "dist" in phases:
             phase_dist(results, tmp)
+        if "bench" in phases:
+            phase_bench(results, tmp)
         if "install" in phases:
             phase_install(tmp)
     finally:

@@ -1,0 +1,334 @@
+"""The port's benches (``optflow_tpu_torch/bench/``) against the repository's
+root benches on the CPU: their inputs bit for bit, the headline solve's
+pipeline against the JAX package's solver, the one work count, and each
+bench's line (the root line's keys, its gates) at ``--quick`` sizes."""
+
+import dataclasses
+import json
+
+import cv2
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import bench as jbench
+import bench_job as jbench_job
+import bench_matrix as jbench_matrix
+from optflow_tpu.core.config import TVL1Params as JaxParams
+from optflow_tpu.ops import tvl1 as jtv
+from optflow_tpu_torch import convert
+from optflow_tpu_torch.bench import job, matrix, roofline, scaling, solve, synth
+from optflow_tpu_torch.ops import tvl1 as ttv
+from tests.test_torch_blocked import _jax_counted_level
+
+# tiny tensors: a thread pool only adds fork-join waits, which a loaded
+# machine turns into scheduler quanta
+torch.set_num_threads(1)
+
+QUICK_SRC_H, QUICK_SRC_W, QUICK_STRIP, QUICK_PAIRS = 128, 256, 32, 12
+
+
+@pytest.mark.parametrize("seed", [0, 3, 15])
+@pytest.mark.parametrize("shape", [(48, 128), (70, 96)])
+def test_make_pair_equals_the_root_bench(seed, shape):
+    got = synth.make_pair(*shape, synth.DX, synth.DY, seed=seed)
+    want = jbench.make_pair(*shape, jbench.DX, jbench.DY, seed=seed)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        assert np.array_equal(g, w)
+
+
+def test_constants_and_oracle_equal_the_root_benches(tmp_path):
+    assert (synth.H, synth.W, synth.BATCH, synth.DX, synth.DY) == (
+        jbench.H, jbench.W, jbench.BATCH, jbench.DX, jbench.DY)
+    assert (synth.SRC_H, synth.SRC_W, synth.SCALE, synth.STRIP,
+            synth.DX_STEP, synth.DY_STEP, synth.MAX_DZ) == (
+        jbench_job.SRC_H, jbench_job.SRC_W, jbench_job.SCALE,
+        jbench_job.STRIP, jbench_job.DX_STEP, jbench_job.DY_STEP,
+        jbench_job.MAX_DZ)
+    assert np.array_equal(synth.oracle_flow(), jbench._oracle_flow())
+    # a fixture of another pair is refused, not skipped
+    other = dict(np.load(synth.ORACLE_FIXTURE), seed=np.int64(1))
+    np.savez(tmp_path / "other.npz", **other)
+    with pytest.raises(ValueError, match="oracle flow"):
+        synth.oracle_flow(tmp_path / "other.npz")
+
+
+@pytest.mark.parametrize("misalign", [True, False])
+def test_affine_pairs_equal_the_matrix_benchs_pairs(misalign):
+    got = synth.affine_pairs(3, 64, 128, seed0=2, misalign=misalign)
+    want = jbench_matrix._pairs(3, 64, 128, seed0=2, misalign=misalign)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert np.array_equal(g, w)
+
+
+class _Captured(Exception):
+    pass
+
+
+def test_chained_frames_equal_the_matrix_benchs(monkeypatch):
+    """``bench_matrix.bench_features_chained`` hands its frames to
+    ``jnp.asarray`` first: caught there, before any solve."""
+    def capture(x, *a, **k):
+        raise _Captured(np.asarray(x))
+
+    monkeypatch.setattr(jax.numpy, "asarray", capture)
+    with pytest.raises(_Captured) as caught:
+        jbench_matrix.bench_features_chained(None)
+    want = caught.value.args[0]
+    got = synth.chained_frames(16, 256, 1024)
+    assert want.shape == got.shape == (17, 256, 1024)
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got, want)
+
+
+def test_stack_job_sink_and_gate_equal_the_job_bench(monkeypatch, tmp_path):
+    """At the ``--quick`` geometry: the decoded PNG sections, the job dict,
+    the sink's serialisation and the match gate. The root script sets its
+    module's geometry for ``--quick`` the same way."""
+    monkeypatch.setattr(jbench_job, "SRC_H", QUICK_SRC_H)
+    monkeypatch.setattr(jbench_job, "SRC_W", QUICK_SRC_W)
+    monkeypatch.setattr(jbench_job, "STRIP", QUICK_STRIP)
+    monkeypatch.setattr(jbench_job, "CACHE_TAG", "q1")
+    monkeypatch.setenv("OPTFLOW_TPU_BENCH_STACK", str(tmp_path / "jax"))
+    n_frames = QUICK_PAIRS // synth.MAX_DZ + synth.MAX_DZ + 1
+    jdir = jbench_job.gen_stack(n_frames)
+    tdir = synth.gen_stack(n_frames, QUICK_SRC_H, QUICK_SRC_W,
+                           root=str(tmp_path / "torch"))
+    sections = synth.gen_sections(n_frames, QUICK_SRC_H, QUICK_SRC_W)
+    names = synth.stack_names(tdir, n_frames)
+    for z, name in enumerate(names):
+        mine = cv2.imread(name, cv2.IMREAD_UNCHANGED)
+        theirs = cv2.imread(str(jdir / f"sec_{z:04d}.png"),
+                            cv2.IMREAD_UNCHANGED)
+        assert mine.shape == (QUICK_SRC_H, QUICK_SRC_W)
+        assert np.array_equal(mine, theirs)
+        assert np.array_equal(mine, sections[z])
+    # a second call finds the cached stack
+    assert synth.gen_stack(n_frames, QUICK_SRC_H, QUICK_SRC_W,
+                           root=str(tmp_path / "torch")) == tdir
+
+    want = jbench_job.build_job(jdir, n_frames, QUICK_PAIRS, "j.jsonl", "job")
+    got = synth.build_job(synth.stack_names(jdir, n_frames), QUICK_PAIRS,
+                          "j.jsonl", "job", QUICK_STRIP)
+    assert got == want
+    assert len(got["images"]) == QUICK_PAIRS
+
+    rng = np.random.default_rng(5)
+
+    def match_set(im, k, err):
+        p = rng.uniform(0, 500, (2, k))
+        shift = np.array([[im["dz"] * synth.DX_STEP],
+                          [im["dz"] * synth.DY_STEP]])
+        q = p + shift + rng.normal(0, err, (2, k))
+        return {"pId": im["pId"], "qId": im["qId"],
+                "matches": {"p": p.tolist(), "q": q.tolist(),
+                            "w": [1.0] * k}}
+
+    images = got["images"]
+    batch = [match_set(im, 25, 0.3) for im in images[:6]]
+    batch.append({"pId": images[6]["pId"], "qId": images[6]["qId"],
+                  "matches": {"p": [[], []], "q": [[], []], "w": []}})
+    zero = match_set(images[7], 3, 5.0)
+    zero["matches"]["w"] = [0.0] * 3
+    batch.append(zero)
+    batch.append(dict(match_set(images[8], 4, 9.0), pId="tile_x"))
+    mine, theirs = synth.MockRenderSink(), jbench_job.MockRenderSink()
+    for sink in (mine, theirs):
+        sink.put(batch[:5])
+        sink.put(batch[5:])
+    assert (mine.puts, mine.bytes, mine.match_sets) == (
+        theirs.puts, theirs.bytes, theirs.match_sets)
+    gate = synth.gate_matches(mine, got)
+    assert gate == jbench_job.gate_matches(theirs, want)
+    assert gate["match_ok"] and gate["match_err_px"] > 0.1
+    assert synth.match_errors(mine.match_sets, got)[1] == 6 * 25
+    far = synth.MockRenderSink()
+    far.put([match_set(images[0], 10, 3.0)])
+    assert synth.gate_matches(far, got) == jbench_job.gate_matches(far, want)
+    assert not synth.gate_matches(far, got)["match_ok"]
+    empty = synth.MockRenderSink()
+    assert synth.gate_matches(empty, got) == jbench_job.gate_matches(
+        empty, want) == {"match_err_px": None, "match_ok": False}
+
+
+def test_solve_pipeline_equals_the_jax_packages_solver():
+    """The headline solve's pipeline at ``--quick`` size, (2, 48, 128) with
+    3 scales at the other reference defaults, against the JAX package's
+    ``tvl1_flow_batched`` off the TPU (the vmapped jnp solver): within 1e-4
+    px, every level's count of every image equal to the jnp loop's."""
+    i0, i1 = solve.solve_inputs(2, 48, 128)
+    jp = JaxParams(nscales=3)
+    tp = convert.params_from_reference(dataclasses.asdict(jp))
+    got = ttv.tvl1_flow_batched(torch.from_numpy(i0), torch.from_numpy(i1),
+                                tp).numpy()
+    stats = ttv.get_last_iteration_stats()
+    want = np.asarray(jtv.tvl1_flow_batched(jnp.asarray(i0),
+                                            jnp.asarray(i1), jp))
+    assert np.abs(got - want).max() <= 1e-4
+
+    jax_counts = []
+    for k in range(2):
+        counts = []
+
+        def counted(a, b, u1, u2, p, u3=None):
+            u1, u2, u3, total = _jax_counted_level(a, b, u1, u2, u3, p)
+            counts.append(int(total))
+            return u1, u2, u3
+
+        jtv.tvl1_flow(jnp.asarray(i0[k]), jnp.asarray(i1[k]), jp,
+                      level_solver=counted)
+        jax_counts.append(counts)
+    assert [it.tolist() for _, it in stats] == [list(c) for c in
+                                                zip(*jax_counts)]
+    assert all(0 < c < 5 * 300 for c in np.ravel(jax_counts))  # exits fired
+    # the bench's count is the sum of these
+    work = roofline.pyramid_work(stats, tp.warps)
+    assert work.px_iterations == sum(
+        h * w * sum(c) for ((h, w), _), c in zip(stats, zip(*jax_counts)))
+
+
+def test_pyramid_work_is_the_hand_count_and_a_share_above_one_raises():
+    stats = [((2, 3), torch.tensor([4, 5], dtype=torch.int32)),
+             ((4, 6), torch.tensor([1, 2], dtype=torch.int32))]
+    work = roofline.pyramid_work(stats, warps=2)
+    # level 2x3: 6 px x (63 x 9 iterations + 2 images x (73 x 2 + 4))
+    # level 4x6: 24 px x (63 x 3 + 2 x 150)
+    assert work.flops == 6 * (63 * 9 + 2 * 150) + 24 * (63 * 3 + 2 * 150)
+    assert work.flops == 16938
+    assert work.bytes == 16 * 2 * 24  # i0, i1 read, flow written, finest
+    assert work.px_iterations == 6 * 9 + 24 * 3
+    assert (roofline.ITER_FLOPS_PER_PX, roofline.WARP_FLOPS_PER_PX,
+            roofline.GRAD_FLOPS_PER_PX) == (63, 73, 4)
+
+    ops_bound = roofline.Work(67e12, 3.35e12 / 2, 0.0)  # 1 s, 0.5 s
+    assert roofline.bound_seconds(ops_bound) == (1.0, "operations")
+    assert roofline.share(ops_bound, 4.0) == (0.25, "operations")
+    byte_bound = roofline.Work(0.0, 3.35e12, 0.0)
+    assert roofline.share(byte_bound, 2.0) == (0.5, "bytes")
+    assert roofline.share(ops_bound, 1.0) == (1.0, "operations")
+    with pytest.raises(ValueError, match="share"):
+        roofline.share(ops_bound, 0.5)
+    # the per-call bounds of the kernels line are the same count
+    t, by = roofline.level_bound_ms(32, 256, 1024, 2, 32 * 50)
+    assert by == "operations" and t == pytest.approx(
+        256 * 1024 * (63 * 1600 + 32 * 150) / 67e12 * 1e3)
+    t, by = roofline.chunk_bound_ms(4, 512, 1024, 64, 4 * 8)
+    assert by == "bytes" and t == pytest.approx(
+        (15 * 4 * 4 * 512 * 1024 + 4 * 4 * 64) / 3.35e12 * 1e3)
+
+
+# the keys of each root bench's line, and the port's differences
+JAX_KEYS = {
+    # bench.py:262-293
+    "solve": {"metric", "value", "unit", "vs_baseline", "epe_px",
+              "epe_target_px", "epe_ok", "epe_vs_oracle_px", "oracle_epe_ok",
+              "platform", "kernel", "shape", "seconds_per_batch",
+              "latency_s_per_batch", "mfu", "gpx_iters_per_batch",
+              "shift_warp_fallback_sweeps"},
+    # bench_job.py:235-255, with gate_matches's two
+    "job": {"metric", "value", "unit", "vs_baseline", "platform", "pairs",
+            "pairs_per_s", "wall_s", "mp_per_pair", "stage_breakdown_s",
+            "batched", "sequential", "uploads", "matches", "sink_bytes",
+            "match_err_px", "match_ok"},
+    # bench_matrix.py:190-204
+    "features": {"metric", "value", "unit", "vs_baseline", "platform",
+                 "seconds_per_batch", "latency_s_per_batch",
+                 "good_matches_total", "warp_clamped_px", "e2e_epe_px",
+                 "e2e_ok", "affine_corner_err_px", "shape"},
+    # bench_matrix.py:270-280
+    "features_chained": {"metric", "value", "unit", "vs_baseline",
+                         "platform", "seconds_per_batch",
+                         "good_matches_total", "unique_frames", "shape"},
+    # bench_matrix.py:300-358 (bench_roofline)
+    "roofline": {"metric", "platform", "px_iterations", "xla",
+                 "pallas_legacy", "pallas_fused", "fused_speedup_vs_xla",
+                 "value", "unit", "vs_baseline"},
+    # bench_matrix.py:392-401
+    "tiled": {"metric", "value", "unit", "vs_baseline", "platform",
+              "halo_rows", "seconds", "shape"},
+    # bench_scaling.py:193-218
+    "scaling": {"metric", "value", "unit", "vs_baseline", "platform",
+                "devices", "pairs_per_s", "efficiency",
+                "eager_dispatch_enqueue_ms",
+                "eager_dispatch_enqueue_sequential_ms",
+                "scaling_projection", "note"},
+}
+RENAMED = {"roofline": {"xla": "plain", "pallas_legacy": "chunk",
+                        "pallas_fused": "level",
+                        "fused_speedup_vs_xla": "level_speedup_vs_plain"}}
+OMITTED = {"solve": {"shift_warp_fallback_sweeps"},
+           "features": {"warp_clamped_px"}}
+ADDED = {"solve": {"device", "bound"}, "job": {"device", "prefetch"},
+         "features_chained": {"device", "e2e_epe_px", "e2e_ok"}}
+
+
+def _run_main(capsys, main, argv):
+    assert main(argv) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert len(lines) == 1, lines
+    return json.loads(lines[0])
+
+
+def _expected_keys(name):
+    keys = {RENAMED.get(name, {}).get(k, k) for k in JAX_KEYS[name]}
+    return (keys - OMITTED.get(name, set())) | ADDED.get(name, {"device"})
+
+
+CASES = {
+    "solve": (solve.main, []),
+    "job": (job.main, []),
+    "scaling": (scaling.main, ["--virtual", "4"]),
+    "features": (matrix.main, ["features"]),
+    "features_chained": (matrix.main, ["features_chained"]),
+    "roofline": (matrix.main, ["roofline"]),
+    "tiled": (matrix.main, ["tiled"]),
+    "matrix_scaling": (matrix.main, ["scaling"]),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bench_prints_one_line_with_the_root_keys_and_its_gates_pass(
+        name, capsys, monkeypatch, tmp_path):
+    monkeypatch.setenv(synth.STACK_ENV, str(tmp_path))
+    main, extra = CASES[name]
+    rec = _run_main(capsys, main, ["--device", "cpu", "--quick", *extra])
+    key = "scaling" if name == "matrix_scaling" else name
+    assert set(rec) == _expected_keys(key)
+    assert rec["platform"] == "cpu" and rec["device"].startswith("cpu")
+    if key == "solve":
+        assert rec["epe_ok"] and rec["shape"] == [2, 48, 128]
+        # no oracle at this shape, no share of the card's peak on the CPU
+        assert rec["oracle_epe_ok"] is None and rec["mfu"] is None
+        assert rec["kernel"] == "plain" and rec["bound"] == "operations"
+        assert rec["gpx_iters_per_batch"] > 0
+    elif key == "job":
+        assert rec["match_ok"] and rec["pairs"] == rec["batched"] == 12
+        assert rec["prefetch"] in ("native", "native-resize", "cv2", "pil")
+    elif key in ("features", "features_chained"):
+        assert rec["e2e_ok"] and rec["good_matches_total"] > 0
+    elif key == "roofline":
+        for row in ("plain", "chunk", "level"):
+            assert set(rec[row]) == {"seconds_per_image", "px_iter_per_s_G",
+                                     "gflops", "share", "bound"}
+            assert rec[row]["share"] is None
+            assert rec[row]["bound"] == "operations"
+    elif key == "tiled":
+        assert rec["value"] <= 0.25 and "cpu entered 4 times" in rec["device"]
+    else:
+        assert rec["devices"] == 4
+        assert set(rec["pairs_per_s"]) == {"1", "2", "4"}
+        assert rec["scaling_projection"]["projected_efficiency"] is None
+
+
+@pytest.mark.parametrize("module", [solve, job, matrix, scaling])
+def test_without_a_card_a_bench_exits_with_a_message(module, monkeypatch,
+                                                     capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as ended:
+        module.main(["--quick"])
+    assert "torch.cuda.is_available() is false" in str(ended.value.code)
+    assert capsys.readouterr().out == ""

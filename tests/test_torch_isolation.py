@@ -48,11 +48,18 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch.native\n"
         "import optflow_tpu_torch.native.frame\n"
         "import optflow_tpu_torch.ops._build\n"
+        "import optflow_tpu_torch.bench.synth\n"
+        "import optflow_tpu_torch.bench.roofline\n"
+        "import optflow_tpu_torch.bench.solve\n"
+        "import optflow_tpu_torch.bench.job\n"
+        "import optflow_tpu_torch.bench.matrix\n"
+        "import optflow_tpu_torch.bench.scaling\n"
         # builds (or finds) and loads the port's own loader library
         "assert optflow_tpu_torch.native.available()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'optflow_tpu' or "
-        "m.startswith('optflow_tpu.'))\n"
+        "m.startswith('optflow_tpu.') or m in ('bench', 'bench_job', "
+        "'bench_matrix', 'bench_scaling'))\n"
         "late = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('cv2', 'PIL', 'triton'))\n"
         "print('BAD', bad)\n"
@@ -69,8 +76,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
+    # the JAX package, and the root benches (which import it)
     pattern = re.compile(
-        r"^\s*(?:from|import)\s+(jax|optflow_tpu)(?![\w])", re.MULTILINE
+        r"^\s*(?:from|import)\s+(jax|optflow_tpu|bench(?:_job|_matrix|"
+        r"_scaling)?)(?![\w])", re.MULTILINE
     )
     package = sorted((ROOT / "optflow_tpu_torch").rglob("*.py"))
     # the port's scripts beside the package
@@ -90,7 +99,9 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "tools/gen_pairs.py", "tools/upload_matches.py",
             "dist/__init__.py", "dist/mesh.py", "dist/scheduler.py",
             "dist/tiled.py", "align/distributed.py", "cli/run_pod.py",
-            "native/__init__.py", "ops/_build.py"} <= rel
+            "native/__init__.py", "ops/_build.py", "bench/__init__.py",
+            "bench/synth.py", "bench/roofline.py", "bench/solve.py",
+            "bench/job.py", "bench/matrix.py", "bench/scaling.py"} <= rel
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -125,6 +136,7 @@ def test_entry_points_default_to_the_gpu():
 
     from optflow_tpu_torch import convert
     from optflow_tpu_torch.align import average_flow, global_solve, zblock
+    from optflow_tpu_torch.bench import job, matrix, scaling, solve
     from optflow_tpu_torch.cli import main as cli
     from optflow_tpu_torch.cli import run_pod
     from optflow_tpu_torch.engine import (
@@ -149,7 +161,8 @@ def test_entry_points_default_to_the_gpu():
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__name__
     for main in (cli.main, cli._align_main, kernel_ablate.main,
-                 smem_cap.main, run_pod.main):
+                 smem_cap.main, run_pod.main, solve.main, job.main,
+                 matrix.main, scaling.main):
         assert 'default="cuda"' in inspect.getsource(main)
 
 
