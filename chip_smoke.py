@@ -47,7 +47,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
   build    compile (one nvcc per source, together) and load the five
            kernel libraries from optflow_tpu_torch/csrc; then the image
            loader (g++, native/loader.cpp) and its header-free resize
-           (native/frame.cpp): their seconds, commands and errors
+           (native/frame.cpp): their seconds, commands and errors, and each
+           library found built that did not load and was built again
   decode   the prefetch loader's native route on the card machine's host:
            the image loader, or where its image headers are missing the
            header-free route (cv2 decodes, frame.cpp resizes; a failed build
@@ -97,7 +98,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            a `map` job of 8 full-section pairs and a `flow` job of 2
            through run_job_batched, TIFFs written, read back and gated
   level_api  tvl1_flow with the chunk-kernel level solver at 512x1024: one
-           call into the chunk library and at most two launches per level
+           call into the chunk library and at most two launches per level;
+           three timed runs, each started on an idle card
   features feature pre-alignment: the frame-deduplicated aligner on a
            chained stack of 17 strips with known affines (stage times), a
            job of 32 misaligned strip pairs with features on through
@@ -135,7 +137,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            cuda:0 entered 8 times: a correctness check, as in dist), and
            scaling (the visible cards; one card: size 1, unmeasured). Gates:
            both EPE gates, the match gate, both end-to-end feature gates, the
-           tiled solve within 0.25 px, every roofline share <= 1.0, the solve
+           tiled solve within 0.25 px, every roofline share <= 1.0, the
+           roofline's plain solve captured as one CUDA graph equal to its
+           eager call (a line gives both times and the difference), the solve
            line's counted pixel-iterations equal to the solve phase's on the
            same inputs, and the level kernel launched by every bench, the
            chunk kernel by the roofline
@@ -356,11 +360,16 @@ def enqueued_launches(fn):
     memops), the difference of the tallies each library keeps where it
     enqueues them. It needs no tracer, so it is the same on every machine;
     PyTorch's own operations (none inside a kernel wrapper but allocations)
-    are not in it."""
+    are not in it. It returns once the card has run them, so a timer
+    started next does not time their tail."""
+    import torch
+
     from optflow_tpu_torch.ops._build import enqueued
 
     k0, m0 = enqueued()
     fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     k1, m1 = enqueued()
     return k1 - k0, m1 - m0
 
@@ -476,8 +485,10 @@ def phase_build():
             "ptxas": [ln.strip() for ln in lines
                       if "registers" in ln or "spill" in ln][-16:],
         }
+    # libraries found built but refused by the dynamic loader (built on
+    # another machine, or truncated), each moved aside and built once more
     emit({"phase": "build", "seconds": round(secs, 3), "libraries": libs,
-          **host})
+          **host, "rebuilt_after_load_error": dict(_build.rebuilds)})
 
 
 # decode phase: frames of the job's source geometry, and two sizes whose
@@ -1709,9 +1720,12 @@ def phase_ablate(results):
     per iteration on this card."""
     import math
 
+    import torch
+
     from optflow_tpu_torch.tools.kernel_ablate import run_ablation
 
     zero_launch_counts()  # a main path of its kernel
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows = run_ablation(16, 256, 1024, 50, 600, "cuda")
     wall = time.perf_counter() - t0
@@ -2055,12 +2069,15 @@ def run_cli(job, tmp, tag, extra_args=()):
     """Run ``job`` through the CLI in a new process with the JSON-lines
     sink. Returns (finished process, match sets, wall seconds); fails the
     run unless the exit code is 0."""
+    import torch
+
     out = os.path.join(tmp, f"{tag}_matches.jsonl")
     job["match_sink"] = "jsonl"
     job["match_output"] = out
     job_path = os.path.join(tmp, f"{tag}.json.gz")
     with gzip.open(job_path, "wb") as f:
         f.write(json.dumps(job).encode("utf-8"))
+    torch.cuda.synchronize()  # none of this process's work beside the CLI's
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "optflow_tpu_torch.cli.main", job_path,
@@ -2378,9 +2395,10 @@ def phase_level_api(results):
     # by the library (no other library runs on this path)
     chunk_enqueued, chunk_memops = enqueued_launches(
         lambda: tvl1_flow(i0, i1, params, level_solver=solver))
-    # two more runs show the spread
+    # two more runs show the spread, each on an idle card
     more_ms, more_enqueue_ms = [], []
     for _ in range(2):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         tvl1_flow(i0, i1, params, level_solver=solver)
         more_enqueue_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2931,6 +2949,7 @@ def phase_style2(results, tmp):
     t_exact = time_cuda(lambda: tvl1_flow_batched_cuda(f_s, b_s, params), 1)
     exact = tvl1_flow_batched_cuda(f_s, b_s, params)
     exact_iters = [int(it.sum()) for _, it in tv.get_last_iteration_stats()]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = tv.solve_pyramid(f_s, b_s, params, None, tv.level_solve_plain)
     torch.cuda.synchronize()
@@ -3686,6 +3705,8 @@ def dist_align(devs, results):
     same assembled system) and through the library (float32 transforms)
     against the exact solve; the sharded CG on the first ALIGN_CG_SECTIONS
     sections against the one-device CG and the z-block solve."""
+    import torch
+
     from optflow_tpu_torch.align import zblock
     from optflow_tpu_torch.align.distributed import (
         solve_affine_alignment_sharded,
@@ -3725,6 +3746,7 @@ def dist_align(devs, results):
         finally:
             zblock._schur_solve = schur
         x_sharded = zblock._schur_solve_sharded(*seen["system"], devs)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         sharded = solve_zblock_alignment(recs, model=model,
                                          block_sections=ALIGN_BLOCK,
@@ -3741,6 +3763,7 @@ def dist_align(devs, results):
         # float32 atomics make each CG's answer move run to run: the
         # translation CGs run DIST_CG_RUNS times each, every pair compared
         runs = DIST_CG_RUNS if model == "translation" else 1
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         cg_shs = [cg_sharded(sub, mesh)]
         cg_s = time.perf_counter() - t0
@@ -3789,6 +3812,8 @@ def dist_pod(sections, tmp):
     local port, both on the card."""
     import socket
 
+    import torch
+
     from optflow_tpu_torch.core import imgio
     from optflow_tpu_torch.core.imgio import read_float_tiff
 
@@ -3809,6 +3834,7 @@ def dist_pod(sections, tmp):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "optflow_tpu_torch.cli.run_pod", job_path,
@@ -4099,6 +4125,7 @@ def phase_bench(results, tmp):
     lines, level, chunk = {}, {}, {}
     try:
         for name, main, argv in benches:
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             lines[name], level[name], chunk[name] = run_bench(name, main, argv)
             emit({"phase": "bench", "bench": name, "argv": argv,
@@ -4112,7 +4139,20 @@ def phase_bench(results, tmp):
         else:
             os.environ[synth.STACK_ENV] = saved
 
+    roof = lines["roofline"]
+    plain_diff = roof["plain_graph_vs_eager_max_abs_px"]
+    emit({"phase": "bench", "roofline_plain": {
+        "plain_s_per_image": roof["plain"]["seconds_per_image"],
+        "plain_eager_s_per_image": roof["plain_eager"]["seconds_per_image"],
+        "graph_vs_eager_max_abs_px": plain_diff,
+        "gate_px": matrix.PLAIN_GRAPH_GATE_PX,
+        "speedup_over": roof["speedup_over"]}})
+
     failed = []
+    if plain_diff is None or not plain_diff <= matrix.PLAIN_GRAPH_GATE_PX:
+        failed.append(f"the captured plain level solve is {plain_diff} px "
+                      "from the eager call's, gate "
+                      f"{matrix.PLAIN_GRAPH_GATE_PX} px")
     sol = lines["solve"]
     if not (sol["epe_ok"] and sol["oracle_epe_ok"] is True):
         failed.append(f"solve EPE {sol['epe_px']}, against the oracle "
@@ -4131,7 +4171,7 @@ def phase_bench(results, tmp):
                       "monolithic one")
     shares = {"solve_mfu": sol["mfu"], **{
         row: lines["roofline"][row]["share"]
-        for row in ("plain", "chunk", "level")}}
+        for row in ("plain", "plain_eager", "chunk", "level")}}
     if not all(x is not None and 0.0 < x <= 1.0 for x in shares.values()):
         failed.append(f"roofline shares {shares}")
     if min(level.values()) < 1 or chunk["roofline"] < 1:

@@ -18,13 +18,20 @@ Modes (default: features, features_chained, roofline):
                     (each frame detected and described once), the warp and
                     the solve; gated as ``features``.
   roofline          one 256x1024 level, 300 fixed iterations, 1 warp,
-                    epsilon 0: ``plain`` (the plain level solve on the card,
-                    ``bench_matrix.py``'s ``xla`` row), ``chunk`` (the chunk
-                    kernel's level entry, its ``pallas_legacy``) and
-                    ``level`` (the level kernel at batch 16, per image, its
+                    epsilon 0: ``plain`` (the plain level solve captured as
+                    one CUDA graph and replayed, one submitted program as
+                    ``bench_matrix.py``'s ``xla`` row is one compiled
+                    program; its flow gated against the eager call's at
+                    ``PLAIN_GRAPH_GATE_PX``), ``plain_eager`` (the same
+                    solve called eagerly, ~100 operations an iteration each
+                    dispatched from the host), ``chunk`` (the chunk kernel's
+                    level entry, its ``pallas_legacy``) and ``level`` (the
+                    level kernel at batch 16, per image, its
                     ``pallas_fused``): seconds per image, GFLOP/s and the
                     roofline share from :mod:`.roofline`'s count. ``value``
-                    is ``level``'s speed-up over ``plain``.
+                    is ``level``'s speed-up over ``plain``, which
+                    ``speedup_over`` names. The CPU has no CUDA graphs:
+                    there ``plain`` is the eager call.
   tiled             512x512, 3 scales, 2 warps, 50 iterations, split by rows
                     over ``--devices`` (default every visible card; on the
                     CPU 8 entries, 4 with ``--quick``) through
@@ -41,8 +48,10 @@ nothing); ``features_chained`` adds ``e2e_epe_px`` and ``e2e_ok``, its gate;
 ``roofline``'s rows are named ``plain``, ``chunk`` and ``level`` (for
 ``xla``, ``pallas_legacy`` and ``pallas_fused``), each with
 ``seconds_per_image``, ``px_iter_per_s_G``, ``gflops``, ``share`` and
-``bound`` (for the estimated VPU GFLOP/s and HBM GB/s), and
-``level_speedup_vs_plain`` is ``fused_speedup_vs_xla``. Shares are the
+``bound`` (for the estimated VPU GFLOP/s and HBM GB/s),
+``level_speedup_vs_plain`` is ``fused_speedup_vs_xla``, and it adds the row
+``plain_eager``, ``speedup_over`` and ``plain_graph_vs_eager_max_abs_px``
+(None on the CPU) with its gate ``plain_graph_gate_px``. Shares are the
 card's: a CPU run reports none. A failed gate exits non-zero, after every
 mode asked for has printed its line.
 """
@@ -87,6 +96,10 @@ DEFAULT_MODES = ("features", "features_chained", "roofline")
 E2E_TARGET_PX = 0.5
 TILED_TARGET_PX = 0.25
 MARGIN = 16
+# The captured plain solve replays the eager call's kernels with the eager
+# call's launch configurations on the same inputs: its flow is the eager
+# flow bit for bit.
+PLAIN_GRAPH_GATE_PX = 0.0
 
 
 def _inv23(a):
@@ -266,6 +279,22 @@ def _median_seconds(fn, dev, reps=3) -> float:
     return statistics.median(times)
 
 
+def _captured(fn, dev):
+    """``fn()`` captured as one CUDA graph, after a warm-up on a side stream
+    as ``torch.cuda.graph`` asks: (a replay of the graph, the graph's
+    outputs, which each replay overwrites). A capture that fails raises: the
+    eager time never stands in for it."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fn()
+    return graph.replay, out
+
+
 def bench_roofline(dev, quick, out):
     """Fixed-work economics of one level at the production strip size."""
     from optflow_tpu_torch.ops.tvl1 import level_solve_plain
@@ -289,7 +318,27 @@ def bench_roofline(dev, quick, out):
         "platform": platform(dev),
         "px_iterations": h * w * iters * warps,
     }
-    rows = (("plain", lambda: level_solve_plain(a, b, u, u, p), 1),
+
+    def eager():
+        return level_solve_plain(a, b, u, u, p)
+
+    diff = None
+    if dev.type == "cuda":
+        # at epsilon 0 the plain loop reads nothing back: one program
+        plain, graph_out = _captured(eager, dev)
+        plain()
+        want = eager()
+        diff = max(float((graph_out[i] - want[i]).abs().max())
+                   for i in (0, 1))
+        rec["speedup_over"] = ("plain: level_solve_plain captured as one "
+                               "CUDA graph, replayed")
+    else:
+        plain = eager
+        rec["speedup_over"] = ("plain: level_solve_plain, eager (the CPU "
+                               "has no CUDA graphs)")
+    rec["plain_graph_vs_eager_max_abs_px"] = diff
+    rec["plain_graph_gate_px"] = PLAIN_GRAPH_GATE_PX
+    rows = (("plain", plain, 1), ("plain_eager", eager, 1),
             ("chunk", lambda: tvl1_chunk_level_solve(a, b, u, u, p), 1),
             ("level", lambda: tvl1_level_solve(ab, bb, ub, ub, p), nb))
     for name, fn, per in rows:
@@ -309,7 +358,7 @@ def bench_roofline(dev, quick, out):
                 "unit": "x over the plain level solve (level kernel)",
                 "vs_baseline": speedup, "device": device_label(dev)})
     emit(rec, out)
-    return True
+    return diff is None or diff <= PLAIN_GRAPH_GATE_PX
 
 
 def bench_tiled(dev, quick, devices, out):

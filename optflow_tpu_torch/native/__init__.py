@@ -31,9 +31,11 @@ _lock = threading.Lock()
 
 def _load() -> Optional[ctypes.CDLL]:
     """The loaded library, built if it is not yet; None when it cannot be
-    built or loaded (the reason stays in :func:`build_error`). A failure is
-    not retried within the process, nor where a build of the same source
-    and flags failed before."""
+    built or loaded (the reason stays in :func:`build_error`). A library on
+    disk that does not load (one built on another machine) is built once
+    more first (``_build.load_library``). A failure is not retried within
+    the process, nor where a build of the same source and flags failed
+    before."""
     global _lib, _error
     with _lock:
         if _lib is not None or _error is not None:

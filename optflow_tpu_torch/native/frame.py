@@ -38,8 +38,9 @@ _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 def _load() -> Optional[ctypes.CDLL]:
     """The loaded library, built if it is not yet; None when it cannot be
-    (the reason stays in :func:`build_error`). Not retried within the
-    process."""
+    (the reason stays in :func:`build_error`). A library on disk that does
+    not load (one built on another machine) is built once more first
+    (``_build.load_library``). Not retried within the process."""
     global _lib, _error, _no_compiler
     with _lock:
         if _lib is not None or _error is not None:

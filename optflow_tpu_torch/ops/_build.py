@@ -12,6 +12,10 @@ so an edit rebuilds and an unchanged source is reused; nothing is written
 into the package directory. A failed build raises with the compiler's output
 and leaves it beside the library's name (:func:`error_path`), where the image
 loader reads it instead of compiling again; a successful build removes it.
+A built library that the dynamic loader refuses (one built on another machine
+and copied with the tree, which links a library this machine lacks, or a
+truncated file) is moved aside and built once more (:data:`rebuilds` keeps
+the loader's message); if that fails too, the load raises.
 :func:`build_libraries` compiles several sources at once, one compiler
 process each. :func:`enqueued` reads what the loaded libraries have put on
 the card's streams.
@@ -68,6 +72,9 @@ lock = threading.RLock()
 # seconds the last real compilation of each stem took (absent when the
 # library was already built)
 build_seconds: Dict[str, float] = {}
+# stem -> the dynamic loader's message for each library found built but not
+# loadable, and so built again
+rebuilds: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -170,14 +177,30 @@ def build_libraries(stems: Iterable[str]) -> None:
 
 
 def load_library(stem: str) -> ctypes.CDLL:
-    """The shared library of ``stem``, compiled if it is not built yet.
-    Raises ``RuntimeError`` with the compiler's output when the build
-    fails."""
+    """The shared library of ``stem``, compiled if it is not built yet. A
+    library on disk that does not load is moved aside to ``<name>.stale`` and
+    built once more. Raises ``RuntimeError`` with the compiler's output when
+    a build fails, and ``OSError`` with the dynamic loader's message when the
+    rebuilt library does not load either."""
     with lock:
         lib = _loaded.get(stem)
         if lib is None:
             build_libraries([stem])
-            lib = _loaded[stem] = ctypes.CDLL(str(library_path(stem)))
+            path = library_path(stem)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                rebuilds[stem] = str(e)
+                os.replace(path, path.with_name(path.name + ".stale"))
+                build_libraries([stem])
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as again:
+                    raise OSError(
+                        f"{path} does not load ({e}); it was built again and "
+                        f"the rebuilt library does not load either: {again}"
+                    ) from again
+            _loaded[stem] = lib
     return lib
 
 

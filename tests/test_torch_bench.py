@@ -263,7 +263,13 @@ RENAMED = {"roofline": {"xla": "plain", "pallas_legacy": "chunk",
 OMITTED = {"solve": {"shift_warp_fallback_sweeps"},
            "features": {"warp_clamped_px"}}
 ADDED = {"solve": {"device", "bound"}, "job": {"device", "prefetch"},
-         "features_chained": {"device", "e2e_epe_px", "e2e_ok"}}
+         "features_chained": {"device", "e2e_epe_px", "e2e_ok"},
+         # the root's xla row is one compiled program: the port's plain row
+         # is the plain solve captured as one CUDA graph, its eager call
+         # kept as a row of its own
+         "roofline": {"device", "plain_eager", "speedup_over",
+                      "plain_graph_vs_eager_max_abs_px",
+                      "plain_graph_gate_px"}}
 
 
 def _run_main(capsys, main, argv):
@@ -311,7 +317,7 @@ def test_bench_prints_one_line_with_the_root_keys_and_its_gates_pass(
     elif key in ("features", "features_chained"):
         assert rec["e2e_ok"] and rec["good_matches_total"] > 0
     elif key == "roofline":
-        for row in ("plain", "chunk", "level"):
+        for row in ("plain", "plain_eager", "chunk", "level"):
             assert set(rec[row]) == {"seconds_per_image", "px_iter_per_s_G",
                                      "gflops", "share", "bound"}
             assert rec[row]["share"] is None
@@ -332,3 +338,70 @@ def test_without_a_card_a_bench_exits_with_a_message(module, monkeypatch,
         module.main(["--quick"])
     assert "torch.cuda.is_available() is false" in str(ended.value.code)
     assert capsys.readouterr().out == ""
+
+
+def test_the_roofline_names_its_divisor_and_keeps_the_eager_row(capsys):
+    """On the CPU, which has no CUDA graphs, ``plain`` is the eager call and
+    the line says so; ``value`` divides by ``plain``."""
+    rec = _run_main(capsys, matrix.main,
+                    ["--device", "cpu", "--quick", "roofline"])
+    assert rec["speedup_over"].startswith("plain: ")
+    assert "eager" in rec["speedup_over"]
+    assert rec["plain_graph_vs_eager_max_abs_px"] is None
+    assert rec["plain_graph_gate_px"] == matrix.PLAIN_GRAPH_GATE_PX == 0.0
+    assert rec["plain_eager"]["seconds_per_image"] > 0
+    assert rec["value"] == rec["level_speedup_vs_plain"] == (
+        rec["plain"]["seconds_per_image"] / rec["level"]["seconds_per_image"])
+
+
+def test_a_launch_count_returns_once_the_card_has_run_the_call(monkeypatch):
+    """``chip_smoke.enqueued_launches`` synchronises with the card after the
+    call, so a timer started next does not time the call's tail; the count
+    is still what the call enqueued."""
+    import chip_smoke
+    from optflow_tpu_torch.ops import _build
+
+    tally, events = [5, 0], []
+
+    def enqueued():
+        events.append("read")
+        return tuple(tally)
+
+    def fn():
+        events.append("call")
+        tally[0] += 3
+
+    monkeypatch.setattr(_build, "enqueued", enqueued)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: events.append("synchronize"))
+    assert chip_smoke.enqueued_launches(fn) == (3, 0)
+    assert events == ["read", "call", "synchronize", "read"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_the_captured_plain_roofline_row_equals_the_eager_call(cuda, capsys):
+    rec = _run_main(capsys, matrix.main, ["--quick", "roofline"])
+    assert "CUDA graph" in rec["speedup_over"]
+    assert rec["plain_graph_vs_eager_max_abs_px"] <= matrix.PLAIN_GRAPH_GATE_PX
+    for row in ("plain", "plain_eager", "chunk", "level"):
+        assert 0.0 < rec[row]["share"] <= 1.0
+
+
+@pytest.mark.gpu
+def test_the_level_api_runs_line_up(cuda, capsys):
+    """Each of ``chip_smoke``'s three timed runs of the per-level API starts
+    on an idle card: the three are within 10 % of one another."""
+    import chip_smoke
+
+    chip_smoke.phase_level_api({})
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    runs = [line["solve_ms"], *line["solve_ms_two_more_runs"]]
+    assert max(runs) <= 1.1 * min(runs), runs
