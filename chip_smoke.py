@@ -28,8 +28,9 @@ PyTorch version on the card:
   once for each device and each tile), the sharded
   alignment solves, and two processes of the pod launcher;
 - the port's benches (``optflow_tpu_torch/bench/``), the counterparts of the
-  root ``bench*.py``, at their full sizes: the level kernel on every one,
-  the chunk kernel's level entry on the roofline;
+  root ``bench*.py``, and its probes (``optflow_tpu_torch/tools/probes/``),
+  the counterparts of the root ``tools/probes/``, at their full sizes: the
+  level kernel on every one, the chunk kernel's level entry on the roofline;
 - the native image loader, or its header-free resize behind cv2's decode
   where the loader cannot be built, which decodes every job's frames from
   files, and the deploy recipe: a wheel installed apart, which builds every kernel
@@ -135,14 +136,22 @@ Phases, one JSON line each; any failure ends the run with a non-zero code:
            not its default 512, from PNG files), the matrix's features,
            features_chained, roofline and tiled (512x512 split by rows over
            cuda:0 entered 8 times: a correctness check, as in dist), and
-           scaling (the visible cards; one card: size 1, unmeasured). Gates:
-           both EPE gates, the match gate, both end-to-end feature gates, the
-           tiled solve within 0.25 px, every roofline share <= 1.0, the
-           roofline's plain solve captured as one CUDA graph equal to its
-           eager call (a line gives both times and the difference), the solve
-           line's counted pixel-iterations equal to the solve phase's on the
-           same inputs, and the level kernel launched by every bench, the
-           chunk kernel by the roofline
+           scaling (the visible cards; one card: size 1, unmeasured); then
+           the full-section bench (bench.section: 4x512x1024, 1x1024x1024,
+           16x256x1024, each level timed) and the four probes: r4_budget
+           (the solve's time budget), r4_feature_stages (pre-alignment by
+           stage), r5_sample_stage (a job's device group by piece) and
+           r5_transfer_cost (host<->device copies). Gates: both EPE gates,
+           the match gate, both end-to-end feature gates, the tiled solve
+           within 0.25 px, every roofline share <= 1.0, the roofline's plain
+           solve captured as one CUDA graph equal to its eager call (a line
+           gives both times and the difference), the solve line's and the
+           r4_budget full row's counted pixel-iterations equal to the solve
+           phase's on the same inputs, every section's EPE <= 0.5 px, the
+           stages composed equal to the prealign (0.0 at the corners), the
+           group's pieces equal to the whole call and every copy equal to
+           its source (bit for bit), and the level kernel launched by every
+           bench and probe, the chunk kernel by the roofline
   install  deploy/bootstrap_venv_torch.sh --device cuda: the wheel, an
            isolated install, its console scripts, every kernel and the host
            libraries of the decode route built from the installed tree, and a
@@ -4095,12 +4104,25 @@ def phase_bench(results, tmp):
     user calls, their lines and gates."""
     import torch
 
-    from optflow_tpu_torch.bench import job, matrix, scaling, solve, synth
+    from optflow_tpu_torch.bench import (
+        job,
+        matrix,
+        scaling,
+        section,
+        solve,
+        synth,
+    )
     from optflow_tpu_torch.bench.roofline import pyramid_work
     from optflow_tpu_torch.core.config import TVL1Params
     from optflow_tpu_torch.ops.tvl1 import (
         get_last_iteration_stats,
         tvl1_flow_batched,
+    )
+    from optflow_tpu_torch.tools.probes import (
+        r4_budget,
+        r4_feature_stages,
+        r5_sample_stage,
+        r5_transfer_cost,
     )
 
     px_iters = results.get("solve_px_iterations")
@@ -4119,6 +4141,11 @@ def phase_bench(results, tmp):
         ("roofline", matrix.main, ["roofline"]),
         ("tiled", matrix.main, ["tiled", "--devices", rows]),
         ("scaling", scaling.main, []),
+        ("section", section.main, []),
+        ("r4_budget", r4_budget.main, []),
+        ("r4_feature_stages", r4_feature_stages.main, []),
+        ("r5_sample_stage", r5_sample_stage.main, []),
+        ("r5_transfer_cost", r5_transfer_cost.main, []),
     )
     saved = os.environ.get(synth.STACK_ENV)
     os.environ[synth.STACK_ENV] = os.path.join(tmp, "bench_stack")
@@ -4174,6 +4201,20 @@ def phase_bench(results, tmp):
         for row in ("plain", "plain_eager", "chunk", "level")}}
     if not all(x is not None and 0.0 < x <= 1.0 for x in shares.values()):
         failed.append(f"roofline shares {shares}")
+    sections = lines["section"]["sections"]
+    if [tuple(sec["shape"]) for sec in sections] != list(section.SHAPES) \
+            or not all(sec["epe_px"] <= 0.5 for sec in sections):
+        failed.append("section shapes and EPE: " + str(
+            [(sec["shape"], sec["epe_px"]) for sec in sections]))
+    budget_px = lines["r4_budget"]["rows"]["full"]["px_iterations"]
+    if round(budget_px) != round(px_iters):
+        failed.append(f"the r4_budget full row counted {budget_px} pixel-"
+                      f"iterations, the solve phase {px_iters}")
+    for name, gate in (("r4_feature_stages", "gate_ok"),
+                       ("r5_sample_stage", "pieces_equal_whole"),
+                       ("r5_transfer_cost", "readback_equal")):
+        if lines[name][gate] is not True:
+            failed.append(f"{name}: {gate} {lines[name][gate]}")
     if min(level.values()) < 1 or chunk["roofline"] < 1:
         failed.append(f"a bench did not launch its kernel: level {level}, "
                       f"chunk {chunk}")

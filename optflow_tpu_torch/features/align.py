@@ -55,7 +55,7 @@ from optflow_tpu_torch.features.detect import (
     hessian_keypoints,
 )
 from optflow_tpu_torch.features.match import knn_match2, ratio_filter
-from optflow_tpu_torch.features.ransac import find_homography
+from optflow_tpu_torch.features.ransac import HomographyResult, find_homography
 
 IDENTITY = np.array([[1.0, 0, 0], [0, 1.0, 0]], dtype=np.float32)
 
@@ -139,19 +139,37 @@ def _match_and_fit(
     with torch.no_grad():
         matches = knn_match2(desc0, kps0.valid, desc1, kps1.valid, binary=binary)
         good = ratio_filter(matches, mp.ratio)
-        n_good = good.sum(dim=-1).to(torch.int32)
-        enough = n_good > 10  # src/features.cpp:130
-
-        p0 = torch.stack([kps0.x, kps0.y], dim=-1)
-        p1 = torch.stack([
-            torch.gather(kps1.x, -1, matches.idx),
-            torch.gather(kps1.y, -1, matches.idx),
-        ], dim=-1)
-
+        p0, p1 = matched_points(kps0, kps1, matches.idx)
         res = find_homography(
             p0, p1, good, thresh=float(mp.ransac), method=int(mp.homo),
             generator=generator, samples=samples,
         )
+    return gate_homography(res, good, mp)
+
+
+def matched_points(
+    kps0: Keypoints, kps1: Keypoints, idx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p0, p1), ``(..., K, 2)``: every keypoint of set 0 and its best match
+    ``idx`` in set 1 (``Knn2.idx``)."""
+    p0 = torch.stack([kps0.x, kps0.y], dim=-1)
+    p1 = torch.stack([
+        torch.gather(kps1.x, -1, idx),
+        torch.gather(kps1.y, -1, idx),
+    ], dim=-1)
+    return p0, p1
+
+
+def gate_homography(
+    res: HomographyResult, good: torch.Tensor, mp: MatchParams
+) -> AlignResult:
+    """The reference's sanity gates on a homography fitted to the ``good``
+    matches (the ratio test's mask): its top two rows as the affine, or the
+    identity where too few matches survived or the fit failed the zoom
+    gate."""
+    with torch.no_grad():
+        n_good = good.sum(dim=-1).to(torch.int32)
+        enough = n_good > 10  # src/features.cpp:130
         H = res.H
         zoom_ok = (
             ((1.0 - H[..., 0, 0]).abs() <= mp.max_zoom_deviation)

@@ -19,8 +19,24 @@ import bench_matrix as jbench_matrix
 from optflow_tpu.core.config import TVL1Params as JaxParams
 from optflow_tpu.ops import tvl1 as jtv
 from optflow_tpu_torch import convert
-from optflow_tpu_torch.bench import job, matrix, roofline, scaling, solve, synth
+from optflow_tpu_torch.bench import (
+    job,
+    matrix,
+    roofline,
+    scaling,
+    section,
+    solve,
+    synth,
+)
+from optflow_tpu_torch.core.config import TVL1Params
 from optflow_tpu_torch.ops import tvl1 as ttv
+from optflow_tpu_torch.ops.pyramid import pyramid_shapes
+from optflow_tpu_torch.tools.probes import (
+    r4_budget,
+    r4_feature_stages,
+    r5_sample_stage,
+    r5_transfer_cost,
+)
 from tests.test_torch_blocked import _jax_counted_level
 
 # tiny tensors: a thread pool only adds fork-join waits, which a loaded
@@ -155,6 +171,25 @@ def test_stack_job_sink_and_gate_equal_the_job_bench(monkeypatch, tmp_path):
         empty, want) == {"match_err_px": None, "match_ok": False}
 
 
+def jax_level_counts(i0, i1, jp):
+    """Per level, coarsest first, the iterations each image of ``(N, H, W)``
+    numpy frames ran in the JAX package's solve (a counted copy of its jnp
+    level loop, image by image)."""
+    jax_counts = []
+    for k in range(len(i0)):
+        counts = []
+
+        def counted(a, b, u1, u2, p, u3=None):
+            u1, u2, u3, total = _jax_counted_level(a, b, u1, u2, u3, p)
+            counts.append(int(total))
+            return u1, u2, u3
+
+        jtv.tvl1_flow(jnp.asarray(i0[k]), jnp.asarray(i1[k]), jp,
+                      level_solver=counted)
+        jax_counts.append(counts)
+    return [list(c) for c in zip(*jax_counts)]
+
+
 def test_solve_pipeline_equals_the_jax_packages_solver():
     """The headline solve's pipeline at ``--quick`` size, (2, 48, 128) with
     3 scales at the other reference defaults, against the JAX package's
@@ -170,18 +205,7 @@ def test_solve_pipeline_equals_the_jax_packages_solver():
                                             jnp.asarray(i1), jp))
     assert np.abs(got - want).max() <= 1e-4
 
-    jax_counts = []
-    for k in range(2):
-        counts = []
-
-        def counted(a, b, u1, u2, p, u3=None):
-            u1, u2, u3, total = _jax_counted_level(a, b, u1, u2, u3, p)
-            counts.append(int(total))
-            return u1, u2, u3
-
-        jtv.tvl1_flow(jnp.asarray(i0[k]), jnp.asarray(i1[k]), jp,
-                      level_solver=counted)
-        jax_counts.append(counts)
+    jax_counts = list(zip(*jax_level_counts(i0, i1, jp)))
     assert [it.tolist() for _, it in stats] == [list(c) for c in
                                                 zip(*jax_counts)]
     assert all(0 < c < 5 * 300 for c in np.ravel(jax_counts))  # exits fired
@@ -189,6 +213,48 @@ def test_solve_pipeline_equals_the_jax_packages_solver():
     work = roofline.pyramid_work(stats, tp.warps)
     assert work.px_iterations == sum(
         h * w * sum(c) for ((h, w), _), c in zip(stats, zip(*jax_counts)))
+
+
+@pytest.mark.parametrize("shape", section.QUICK_SHAPES)
+def test_section_levels_equal_the_jax_packages_solver(shape):
+    """``bench.section``'s timed solve, each level through the level
+    kernel's wrapper (its plain version on the CPU), at its ``--quick``
+    shapes and 3 scales against the JAX package's ``tvl1_flow_batched``:
+    within 1e-4 px, and every level's row counting what the jnp loop counts,
+    image by image."""
+    n, h, w = shape
+    i0, i1 = solve.solve_inputs(n, h, w)
+    jp = JaxParams(nscales=3)
+    tp = convert.params_from_reference(dataclasses.asdict(jp))
+    flow, rows = section.level_rows(torch.from_numpy(i0),
+                                    torch.from_numpy(i1), tp)
+    stats = ttv.get_last_iteration_stats()
+    want = np.asarray(jtv.tvl1_flow_batched(jnp.asarray(i0),
+                                            jnp.asarray(i1), jp))
+    assert np.abs(flow.numpy() - want).max() <= 1e-4
+    counts = jax_level_counts(i0, i1, jp)
+    assert [it.tolist() for _, it in stats] == counts
+    assert [r["iters_counted"] for r in rows] == [sum(c) for c in counts]
+    assert [r["shape"] for r in rows] == [[n, *s] for s, _ in stats]
+    assert sum(r["share"] for r in rows) == pytest.approx(1.0)
+
+
+def test_the_section_line_counts_what_its_levels_count(capsys):
+    """The line's counted work is ``pyramid_work``'s of the solve, and its
+    levels' counts sum to the solve's (``get_last_iteration_stats``, left
+    by the timed levels' solve)."""
+    rec = _run_main(capsys, section.main,
+                    ["--device", "cpu", "--quick", "2x64x128"])
+    sec, = rec["sections"]
+    stats = ttv.get_last_iteration_stats()
+    assert sec["shape"] == [2, 64, 128] and rec["value"] == sec[
+        "mp_pairs_per_s"]
+    assert sec["gpx_iters_per_batch"] == roofline.pyramid_work(
+        stats, 5).px_iterations / 1e9
+    assert [r["iters_counted"] for r in sec["levels"]] == [
+        int(it.sum()) for _, it in stats]
+    assert sum(r["iters_counted"] for r in sec["levels"]) == sum(
+        int(it.sum()) for _, it in stats)
 
 
 def test_pyramid_work_is_the_hand_count_and_a_share_above_one_raises():
@@ -272,6 +338,29 @@ ADDED = {"solve": {"device", "bound"}, "job": {"device", "prefetch"},
                       "plain_graph_gate_px"}}
 
 
+# the lines of the port's section bench and probes: the root probes print
+# text, so these have no root line to follow
+PORT_KEYS = {
+    "section": {"metric", "value", "unit", "vs_baseline", "platform",
+                "kernel", "device", "clock", "epe_target_px", "epe_ok",
+                "sections"},
+    "r4_budget": {"probe", "platform", "device", "shape",
+                  "full_mp_pairs_per_s", "pyramid_share",
+                  "no_iteration_share", "rows"},
+    "r4_feature_stages": {"probe", "platform", "device", "shape", "rows",
+                          "prealign_mp_pairs_per_s",
+                          "combined_mp_pairs_per_s", "good_matches",
+                          "composed_vs_prealign_corner_px",
+                          "composed_gate_px", "gate_ok"},
+    "r5_sample_stage": {"probe", "platform", "device", "frames", "pairs",
+                        "strips", "npoints", "rows", "pieces_ms",
+                        "mp_pairs_per_s", "pieces_equal_whole"},
+    "r5_transfer_cost": {"probe", "platform", "device", "copies", "overlap",
+                         "readback_equal"},
+}
+TIMED_KEYS = {"device_ms", "wall_ms", "enqueue_ms"}
+
+
 def _run_main(capsys, main, argv):
     assert main(argv) == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
@@ -280,6 +369,8 @@ def _run_main(capsys, main, argv):
 
 
 def _expected_keys(name):
+    if name in PORT_KEYS:
+        return PORT_KEYS[name]
     keys = {RENAMED.get(name, {}).get(k, k) for k in JAX_KEYS[name]}
     return (keys - OMITTED.get(name, set())) | ADDED.get(name, {"device"})
 
@@ -293,6 +384,11 @@ CASES = {
     "roofline": (matrix.main, ["roofline"]),
     "tiled": (matrix.main, ["tiled"]),
     "matrix_scaling": (matrix.main, ["scaling"]),
+    "section": (section.main, []),
+    "r4_budget": (r4_budget.main, []),
+    "r4_feature_stages": (r4_feature_stages.main, []),
+    "r5_sample_stage": (r5_sample_stage.main, []),
+    "r5_transfer_cost": (r5_transfer_cost.main, []),
 }
 
 
@@ -324,13 +420,54 @@ def test_bench_prints_one_line_with_the_root_keys_and_its_gates_pass(
             assert rec[row]["bound"] == "operations"
     elif key == "tiled":
         assert rec["value"] <= 0.25 and "cpu entered 4 times" in rec["device"]
+    elif key == "section":
+        assert rec["epe_ok"] and rec["clock"] == "host"
+        assert [s["shape"] for s in rec["sections"]] == [
+            list(s) for s in section.QUICK_SHAPES]
+        for sec in rec["sections"]:
+            assert sec["epe_ok"] and sec["mfu"] is None
+            assert len(sec["levels"]) == 3
+            assert all(lv["iters_computed"] is None for lv in sec["levels"])
+    elif key == "r4_budget":
+        rows = rec["rows"]
+        assert set(rows) == {*r4_budget.SOLVE_ROWS, "pyramid",
+                             "tick_pipelined", "tick_synced"}
+        for name in r4_budget.SOLVE_ROWS:
+            assert TIMED_KEYS < set(rows[name])
+            assert rows[name]["device_ms"] is None
+        # no exit: every image runs warps x iterations at every level
+        eps0 = rows["full_eps0"]
+        assert eps0["iters_per_level"] == [[5 * 300] * 2] * 3
+        shapes = pyramid_shapes(48, 128, 3, 0.8)
+        assert eps0["px_iterations"] == sum(2 * 1500 * h * w
+                                            for h, w in shapes)
+        assert rows["warps_1_iterations_1"]["iters_per_level"] == [[1, 1]] * 3
+        assert rec["no_iteration_share"] == (
+            rows["iterations_1"]["wall_ms"] / rows["full"]["wall_ms"])
+    elif key == "r4_feature_stages":
+        assert rec["gate_ok"] and rec["composed_vs_prealign_corner_px"] == 0.0
+        assert list(rec["rows"]) == ["detect_describe", "knn_match",
+                                     "ratio_filter", "ransac", "prealign",
+                                     "warp", "solve"]
+        assert min(rec["good_matches"]) > 10
+    elif key == "r5_sample_stage":
+        assert rec["pieces_equal_whole"] and rec["strips"] == [8, 32, 128]
+        assert list(rec["rows"]) == ["stack_frames", "gather_rois", "solve",
+                                     "post_sample", "readback", "whole"]
+    elif key == "r5_transfer_cost":
+        assert rec["readback_equal"] and rec["overlap"]["streams"] is None
+        for row in rec["copies"].values():
+            assert row["equal"] and row["h2d_pinned"] is None
+            assert TIMED_KEYS < set(row["h2d_pageable"])
     else:
         assert rec["devices"] == 4
         assert set(rec["pairs_per_s"]) == {"1", "2", "4"}
         assert rec["scaling_projection"]["projected_efficiency"] is None
 
 
-@pytest.mark.parametrize("module", [solve, job, matrix, scaling])
+@pytest.mark.parametrize("module", [solve, job, matrix, scaling, section,
+                                    r4_budget, r4_feature_stages,
+                                    r5_sample_stage, r5_transfer_cost])
 def test_without_a_card_a_bench_exits_with_a_message(module, monkeypatch,
                                                      capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -405,3 +542,35 @@ def test_the_level_api_runs_line_up(cuda, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     runs = [line["solve_ms"], *line["solve_ms_two_more_runs"]]
     assert max(runs) <= 1.1 * min(runs), runs
+
+
+@pytest.mark.gpu
+def test_a_section_solve_launches_the_level_kernel_once_a_level(cuda):
+    """``bench.section``'s timed solve of a (4, 512, 1024) section on the
+    card: the level kernel's wrapper called once a level, the blocked and
+    chunk kernels never, and the libraries' own tally one kernel a level."""
+    from optflow_tpu_torch.ops import _build
+    from optflow_tpu_torch.ops.tvl1_blocked_cuda import (
+        tvl1_blocked_level_solve,
+    )
+    from optflow_tpu_torch.ops.tvl1_chunk_cuda import (
+        tvl1_chunk,
+        tvl1_chunk_level_solve,
+    )
+    from optflow_tpu_torch.ops.tvl1_cuda import tvl1_level_solve
+
+    i0, i1 = (torch.from_numpy(a).to(cuda)
+              for a in solve.solve_inputs(4, 512, 1024))
+    params = TVL1Params()
+    section.level_rows(i0, i1, params)  # builds and loads the library
+    wrappers = (tvl1_level_solve, tvl1_blocked_level_solve, tvl1_chunk,
+                tvl1_chunk_level_solve)
+    before = [fn.launches for fn in wrappers]
+    kernels = _build.enqueued()[0]
+    flow, rows = section.level_rows(i0, i1, params)
+    kernels = _build.enqueued()[0] - kernels
+    launched = [fn.launches - b for fn, b in zip(wrappers, before)]
+    assert launched == [params.nscales, 0, 0, 0]
+    assert kernels == len(rows) == params.nscales
+    assert all(r["iters_computed"] >= r["iters_counted"] for r in rows)
+    assert bool(torch.isfinite(flow).all())

@@ -54,6 +54,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import optflow_tpu_torch.bench.job\n"
         "import optflow_tpu_torch.bench.matrix\n"
         "import optflow_tpu_torch.bench.scaling\n"
+        "import optflow_tpu_torch.bench.section\n"
+        "import optflow_tpu_torch.tools.probes.r4_budget\n"
+        "import optflow_tpu_torch.tools.probes.r4_feature_stages\n"
+        "import optflow_tpu_torch.tools.probes.r5_sample_stage\n"
+        "import optflow_tpu_torch.tools.probes.r5_transfer_cost\n"
         # builds (or finds) and loads the port's own loader library
         "assert optflow_tpu_torch.native.available()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -101,7 +106,11 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "dist/tiled.py", "align/distributed.py", "cli/run_pod.py",
             "native/__init__.py", "ops/_build.py", "bench/__init__.py",
             "bench/synth.py", "bench/roofline.py", "bench/solve.py",
-            "bench/job.py", "bench/matrix.py", "bench/scaling.py"} <= rel
+            "bench/job.py", "bench/matrix.py", "bench/scaling.py",
+            "bench/section.py", "tools/probes/r4_budget.py",
+            "tools/probes/r4_feature_stages.py",
+            "tools/probes/r5_sample_stage.py",
+            "tools/probes/r5_transfer_cost.py"} <= rel
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
